@@ -1,0 +1,55 @@
+"""Carry state across between the JAX package's numpy artefacts and the
+port's tensors.
+
+The checker has no weights; what crosses between the two packages (and
+between the engine's device buffers and its host archives) is data:
+encoded state rows (the ``ops.codec.encode`` dict, batch-major, message
+words as uint32), visited tables u32[W, VCAP] and key batches u32[W, M].
+The port carries u32 as int32 bit patterns and state rows batch-last;
+these functions convert both ways without changing a bit.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Union
+
+import numpy as np
+import torch
+
+U32Words = Union[np.ndarray, Sequence[np.ndarray]]
+
+
+def rows_to_torch(arrs: Dict[str, np.ndarray], device="cpu"):
+    """Encoded rows {key: [N, ...]} -> batch-last int32 tensors."""
+    out = {}
+    for k, v in arrs.items():
+        a = np.moveaxis(np.asarray(v), 0, -1)
+        a = a.astype(np.uint32).view(np.int32) if k == "bag" \
+            else a.astype(np.int32)
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def rows_to_numpy(svT: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Batch-last tensors -> encoded rows {key: [N, ...]} in the codec's
+    dtypes (int32, bag uint32).  Always a copy: on the CPU ``.numpy()``
+    would alias the tensor's storage."""
+    out = {}
+    for k, v in svT.items():
+        a = np.moveaxis(v.to(torch.int32).cpu().numpy(), -1, 0).copy()
+        out[k] = a.view(np.uint32) if k == "bag" else a
+    return out
+
+
+def words_to_torch(words: U32Words, device="cpu") -> torch.Tensor:
+    """A visited table or a key batch, u32 [W, n] (or a tuple of W
+    u32 [n] arrays, the JAX engine's form) -> int32 [W, n] tensor."""
+    a = words if isinstance(words, np.ndarray) else \
+        np.stack([np.asarray(w) for w in words])
+    a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def words_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 [W, n] tensor -> u32 [W, n] array (a copy)."""
+    return t.cpu().numpy().view(np.uint32).copy()

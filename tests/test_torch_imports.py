@@ -1,0 +1,45 @@
+"""The port stands alone: every module of raft_tla_tpu_torch and
+chip_smoke.py import with JAX and the JAX package blocked, and
+chip_smoke.py refuses to report a result where there is no CUDA
+device."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import raft_tla_tpu_torch, chip_smoke
+        names = [m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")]
+        for n in names:
+            __import__(n)
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Here there is no CUDA device: the script exits non-zero and prints
+    no result line (it also needs the package beside it)."""
+    import shutil
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    for cwd in (REPO, str(tmp_path)):
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,110 @@
+"""Where the time goes in the PyTorch/CUDA port's check on one GPU.
+
+    python tools/torch_profile.py [--max-depth 17] [--out FILE]
+
+Runs BASELINE config #1 (the chip_smoke.py configuration) through
+``raft_tla_tpu_torch`` on the CUDA device: once plain, for the wall
+time, and once under ``torch.profiler`` (CPU + CUDA activities), for
+the device time per kernel name.  Prints one JSON object: the card,
+the run's counts, wall seconds, the dedup kernel's launches and event
+time, the device-busy total, the idle share of the plain run's wall,
+and the top kernels by device time.  A depth cut keeps the profiler's
+trace small; the runs explore the same levels (a first, unmeasured run
+warms the allocator).
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--max-depth", type=int, default=17)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_profile: needs a CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.engine import cuda_ext
+    from raft_tla_tpu_torch.engine import fingerprint as fp
+    from raft_tla_tpu_torch.engine.bfs import Engine
+
+    card = cs.card_line()
+    cuda_ext.library()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_model(os.path.join(root, "configs/tlc_membership/raft.cfg"),
+                     bounds=Bounds.make(**cs.CONFIG1_BOUNDS))
+
+    def run():
+        eng = Engine(cfg, store_states=False, device="cuda",
+                     **cs.CONFIG1_ENGINE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.check(max_depth=args.max_depth,
+                        max_states=cs.CONFIG1_MAX_STATES)
+        return res, time.perf_counter() - t0
+
+    run()                                  # warm-up: allocator, kernels
+    fp.PROBE_CLAIM_LAUNCHES.reset(timing=True)
+    res, wall = run()
+    launches = fp.PROBE_CLAIM_LAUNCHES.count
+    dedup_ms = fp.PROBE_CLAIM_LAUNCHES.total_ms()
+    fp.PROBE_CLAIM_LAUNCHES.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _res, wall_prof = run()
+    # device-side events only (the kernels): an operator's row repeats
+    # the device time of the kernels it launched
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    out = {
+        "card": card,
+        "max_depth": args.max_depth,
+        "distinct_states": res.distinct_states,
+        "generated_states": res.generated_states,
+        "depth": res.depth,
+        "wall_s": wall,
+        "states_per_s": res.distinct_states / wall,
+        "dedup_launches": launches,
+        "dedup_event_ms": dedup_ms,
+        "profiled_wall_s": wall_prof,
+        "device_busy_ms": busy_ms,
+        # against the unprofiled wall: the kernels are the same, the
+        # profiler only slows the host
+        "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+        "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
+                         "calls": n} for us, k, n in rows[:args.top]],
+    }
+    text = json.dumps(out, indent=1)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fh:
+            fh.write(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
