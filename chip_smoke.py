@@ -6,14 +6,18 @@
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from raft_tla_tpu_torch/csrc (nvcc);
-  3. hold the dedup kernel against its plain twin on the card: a
-     forced-collision fixture, a contended batch, a full table (hovf)
-     and a BASELINE config #1-sized batch — table, fresh, pos and hovf
-     must be equal;
+  3. hold the dedup kernel against its plain twin on the card: (a) a
+     forced-collision fixture, (b) a contended batch, (c) a full table
+     (hovf), (d) a BASELINE config #1-sized batch, (e) a same-home
+     chain, (f) a rehash-shaped reinsert of a 2^20 table into 2^21 and
+     (g) the all-ones key among dead lanes — table, fresh, pos and hovf
+     must be equal, two launches must give the same outputs, and the
+     kernel's claim rounds must equal the CPU model's
+     (``probe_claim_insert_rounds``); (d) and (f) are timed;
   4. the main path: ``Engine(config #1).check(max_states=2_000_000)``
      on the card must give 2,540,315 distinct states, depth 19, no
      violation, and the reference's level sizes; the kernel's launches
-     in this run are counted and timed;
+     in this run are counted and timed, with their claim rounds;
   5. ``trace --target FirstCommit`` on a micro config must give the
      reference's 15-step witness, and the same micro check on the CPU
      (plain twin) must agree with the card.
@@ -55,6 +59,8 @@ MICRO_TRACE = ["Init", "Timeout(0)", "RequestVote(0,0)", "RequestVote(0,1)",
 MICRO_TRACE_GID = 354
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
+# about 1 ms of device sleep at the H100's 1.98 GHz boost clock
+SLEEP_CYCLES = 2_000_000
 
 
 def log(msg):
@@ -88,40 +94,118 @@ def _keys(rng, n, W, salt=0):
     return k
 
 
+def _same_home(rng, n, W, vcap, home, cvt, home_slots):
+    """n distinct keys [W, n] whose home slot in a VCAP table is home."""
+    import numpy as np
+    out = np.empty((W, 0), np.uint32)
+    while out.shape[1] < n:
+        cand = _keys(rng, 64 * vcap, W, salt=rng.randint(1 << 30))
+        hit = home_slots(cvt.words_to_torch(cand), vcap).numpy() == home
+        out = np.concatenate([out, cand[:, hit]], 1)
+    return out[:, :n]
+
+
+def _probes(home, pos, vcap, max_rounds):
+    """Probe steps the sequential walk takes: per lane, the first k with
+    home + k(k+1)/2 = pos (mod VCAP), plus one."""
+    import torch
+    steps = torch.full_like(home, max_rounds)
+    act = torch.arange(home.shape[0], device=home.device)
+    for k in range(max_rounds):
+        hit = ((home[act] + k * (k + 1) // 2) & (vcap - 1)) == pos[act]
+        steps[act[hit]] = k + 1
+        act = act[~hit]
+        if act.numel() == 0:
+            break
+    return int(steps.sum())
+
+
 def kernel_phase(torch, fp, cvt, home_slots, card):
-    """Phase 3: kernel vs plain twin on four fixtures; returns the
-    measurements of the config #1-sized case."""
+    """Phase 3: kernel vs plain twin on seven fixtures; two launches
+    must agree, and the claim rounds must equal the CPU model's.
+    Returns the measurements of fixtures (d) and (f)."""
     import numpy as np
     dev = torch.device("cuda")
     rng = np.random.RandomState(2024)
     W = 2
     errs = []
+    ctr = fp.PROBE_CLAIM_LAUNCHES
 
-    def both(table_np, keys_np, live_np):
-        """Run kernel (card) and twin (plain) from the same inputs."""
-        t_k = cvt.words_to_torch(table_np, dev)
-        t_p = t_k.clone()
+    def both(table_np, keys_np, live_np, max_rounds=fp.MAX_PROBE_ROUNDS):
+        """Run the kernel twice (card), the twin and the rounds model
+        (CPU) from the same inputs; all must agree."""
+        src = cvt.words_to_torch(table_np, dev)
+        t_k, t_k2 = src.clone(), src.clone()
         keys = cvt.words_to_torch(keys_np, dev)
         live = torch.from_numpy(live_np).to(dev)
-        fk, pk, hk = fp.probe_claim_insert(t_k, keys, live)
+        ctr.reset(timing=True)
+        fk, pk, hk = fp.probe_claim_insert(t_k, keys, live, max_rounds)
+        fk2, pk2, hk2 = fp.probe_claim_insert(t_k2, keys, live, max_rounds)
         torch.cuda.synchronize()
-        fpl, ppl, hpl = fp.probe_claim_insert_plain(t_p, keys, live)
+        (r1, e1), (r2, e2) = ctr.rounds()
+        ctr.reset()
+        t_p = src.to("cpu", copy=True)
+        t0 = time.perf_counter()
+        fpl, ppl, hpl = fp.probe_claim_insert_plain(t_p, keys.cpu(),
+                                                    live.cpu(), max_rounds)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        *_m, rounds = fp.probe_claim_insert_rounds(
+            src.to("cpu", copy=True), keys.cpu(), live.cpu(), max_rounds)
+        tk = t_k.cpu()
         # largest absolute difference over every output (u32 words
         # compared as u32)
         errs.append(max(
-            int((t_k.long() & 0xFFFFFFFF).sub(t_p.long() & 0xFFFFFFFF)
+            int((tk.long() & 0xFFFFFFFF).sub(t_p.long() & 0xFFFFFFFF)
                 .abs().max()),
-            int((pk.long() - ppl.long()).abs().max()),
-            int((fk.long() - fpl.long()).abs().max()),
+            int((pk.cpu().long() - ppl.long()).abs().max()),
+            int((fk.cpu().long() - fpl.long()).abs().max()),
             abs(int(bool(hk)) - int(bool(hpl)))))
-        check(torch.equal(t_k, t_p), "table differs")
-        check(torch.equal(fk, fpl), "fresh differs")
-        check(torch.equal(pk, ppl), "pos differs")
+        check(torch.equal(tk, t_p), "table differs")
+        check(torch.equal(fk.cpu(), fpl), "fresh differs")
+        check(torch.equal(pk.cpu(), ppl), "pos differs")
         check(bool(hk) == bool(hpl), "hovf differs")
-        return t_k, keys, live, fk, pk, bool(hk)
+        check(torch.equal(t_k, t_k2) and torch.equal(fk, fk2) and
+              torch.equal(pk, pk2) and bool(hk) == bool(hk2),
+              "two launches differ")
+        check(e1 == e2 == 0, "claim rounds found no fixpoint")
+        check(r1 == r2 == rounds,
+              f"claim rounds {r1}, {r2} != the model's {rounds}")
+        return dict(table=t_k, keys=keys, live=live, fresh=fk, pos=pk,
+                    hovf=bool(hk), rounds=r1, plain_ms=plain_ms, src=src)
 
     def empty(vcap):
         return np.full((W, vcap), 0xFFFFFFFF, np.uint32)
+
+    def timed(src, keys, live, reps=5):
+        """Median kernel time (ms) over reps launches, each on a fresh
+        copy of the table.  A device sleep ahead of each launch keeps
+        the stream busy while the host enqueues it, so the events time
+        the device alone and not the wrapper's host-side work."""
+        ms = []
+        for _ in range(reps):
+            tb = src.clone()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            e0.record()
+            fp.probe_claim_insert(tb, keys, live)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        return sorted(ms)[len(ms) // 2]
+
+    def bound(r, vcap):
+        """Bytes the function must move over the memory rate (ms): keys
+        and live in, the table words the sequential probes read, the
+        claimed words written, fresh + pos + hovf out."""
+        M = r["keys"].shape[1]
+        home = home_slots(r["keys"], vcap).long()
+        probes = _probes(home[r["live"]], r["pos"].long()[r["live"]], vcap,
+                         fp.MAX_PROBE_ROUNDS)
+        n_fresh = int(r["fresh"].sum())
+        nbytes = (4 * W * M + M + 4 * W * probes + 4 * W * n_fresh + M +
+                  4 * M + 4)
+        return nbytes / HBM_BYTES_PER_S * 1e3, probes, nbytes
 
     # (a) forced collisions: VCAP 128, M 96 over 24 distinct keys, dead
     # lanes, a pre-populated cohort
@@ -129,73 +213,106 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
     keys = distinct[:, rng.randint(0, 24, size=96)]
     live = rng.rand(96) > 0.2
     keys[:, ~live] = 0xFFFFFFFF
-    t0, *_ = both(empty(128), distinct[:, :4], np.ones(4, bool))
-    _t, _k, _l, f, _p, h = both(cvt.words_to_numpy(t0), keys, live)
-    check(int(f.sum()) < int(live.sum()) and not h, "fixture (a) vacuous")
-    log("phase 3a forced-collision fixture: kernel == twin")
+    r = both(empty(128), distinct[:, :4], np.ones(4, bool))
+    r = both(cvt.words_to_numpy(r["table"]), keys, live)
+    check(int(r["fresh"].sum()) < int(live.sum()) and not r["hovf"],
+          "fixture (a) vacuous")
+    log(f"phase 3a forced-collision fixture: kernel == twin, "
+        f"{r['rounds']} rounds")
     # (b) contended: VCAP 1024, M 400 distinct keys, all live
-    both(empty(1024), _keys(rng, 400, W, salt=2), np.ones(400, bool))
-    log("phase 3b contended fixture (VCAP 1024, M 400): kernel == twin")
+    r = both(empty(1024), _keys(rng, 400, W, salt=2), np.ones(400, bool))
+    log(f"phase 3b contended fixture (VCAP 1024, M 400): kernel == twin, "
+        f"{r['rounds']} rounds")
     # (c) a full table: every live lane exhausts its probe budget
     full = _keys(rng, 64 + 8, W, salt=3)
-    _t, _k, _l, f, _p, h = both(full[:, :64], full[:, 64:],
-                                np.ones(8, bool))
-    check(h and not bool(f.any()), "fixture (c) did not overflow")
-    log("phase 3c full table (hovf): kernel == twin")
+    r = both(full[:, :64], full[:, 64:], np.ones(8, bool))
+    check(r["hovf"] and not bool(r["fresh"].any()),
+          "fixture (c) did not overflow")
+    log(f"phase 3c full table (hovf): kernel == twin, {r['rounds']} rounds")
     # (d) config #1-sized: VCAP 2^24 filled to 35%, M 32768 with
     # duplicates (in-table and in-batch); the fill runs on the kernel
     vcap, M = 1 << 24, 32768
-    pool = _keys(rng, int(0.35 * vcap) + M, W, salt=4)
-    fill = cvt.words_to_torch(pool[:, :int(0.35 * vcap)], dev)
+    n_fill = int(0.35 * vcap)
+    pool = _keys(rng, n_fill + M, W, salt=4)
+    fill = cvt.words_to_torch(pool[:, :n_fill], dev)
     table = torch.full((W, vcap), -1, dtype=torch.int32, device=dev)
-    fp.probe_claim_insert(table, fill, torch.ones(fill.shape[1],
-                                                  dtype=torch.bool,
+    fill_ms = timed(table, fill, torch.ones(n_fill, dtype=torch.bool,
+                                            device=dev), reps=1)
+    ctr.reset(timing=True)
+    fp.probe_claim_insert(table, fill, torch.ones(n_fill, dtype=torch.bool,
                                                   device=dev))
-    torch.cuda.synchronize()
-    pick = np.concatenate([rng.randint(0, int(0.35 * vcap), M // 4),
-                           int(0.35 * vcap) + rng.randint(0, M // 2,
-                                                          M - M // 4)])
+    (fill_rounds, fill_err), = ctr.rounds()
+    ctr.reset()
+    check(fill_err == 0, "fill found no fixpoint")
+    log(f"phase 3d fill [{card}]: {n_fill} keys into an empty 2^24 table "
+        f"in {fill_ms:.3f} ms, {fill_rounds} rounds")
+    pick = np.concatenate([rng.randint(0, n_fill, M // 4),
+                           n_fill + rng.randint(0, M // 2, M - M // 4)])
     keys = pool[:, pick]
     live = np.ones(M, bool)
-    table_np = cvt.words_to_numpy(table)
-    _t, keys_t, live_t, f, p, h = both(table_np, keys, live)
-    check(not h, "fixture (d) overflowed")
-    log(f"phase 3d config #1-sized fixture (VCAP 2^24 at 35%, M {M}): "
-        f"kernel == twin, {int(f.sum())} fresh")
-    # time the kernel (fresh table copy per launch) and the twin
-    src = cvt.words_to_torch(table_np, dev)
-    reps, ms = 5, []
-    for _ in range(reps):
-        tb = src.clone()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fp.probe_claim_insert(tb, keys_t, live_t)
-        e1.record()
-        torch.cuda.synchronize()
-        ms.append(e0.elapsed_time(e1))
-    tb = src.clone()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fp.probe_claim_insert_plain(tb, keys_t, live_t)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    # bytes the function must move: keys + live in, the table words its
-    # probes read, the claimed words written, fresh + pos + hovf out
-    home = home_slots(keys_t, vcap).long()
-    tri = torch.arange(fp.MAX_PROBE_ROUNDS, device=dev, dtype=torch.int64)
-    tri = tri * (tri + 1) // 2
-    steps = ((home[:, None] + tri[None, :]) & (vcap - 1)) == \
-        p.long()[:, None]
-    probes = int((steps.int().argmax(1) + 1).sum())
-    n_fresh = int(f.sum())
-    nbytes = (4 * W * M + M + 4 * W * probes + 4 * W * n_fresh + M +
-              4 * M + 4)
-    kern_ms = sorted(ms)[len(ms) // 2]
-    log(f"phase 3 timing [{card}]: kernel {kern_ms:.3f} ms (median of "
-        f"{reps}), plain twin {plain_ms:.1f} ms, {probes} probes, "
-        f"{nbytes} bytes")
-    return dict(max_abs_err=max(errs), ms=kern_ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, probes=probes)
+    d = both(cvt.words_to_numpy(table), keys, live)
+    check(not d["hovf"], "fixture (d) overflowed")
+    d_ms = timed(d["src"], d["keys"], d["live"])
+    d_bound, d_probes, d_bytes = bound(d, vcap)
+    log(f"phase 3d config #1-sized fixture (VCAP 2^24 at 35%, M {M}) "
+        f"[{card}]: kernel == twin, {int(d['fresh'].sum())} fresh, "
+        f"{d['rounds']} rounds; kernel {d_ms:.4f} ms (median of 5), plain "
+        f"twin {d['plain_ms']:.1f} ms, {d_probes} probes, {d_bytes} bytes")
+    # (e) a same-home chain: 48 distinct keys share one home, so each
+    # round settles one more link of the chain
+    vcap = 1024
+    chain = _same_home(rng, 48, W, vcap, 321, cvt, home_slots)
+    keys = np.concatenate([chain, chain[:, rng.randint(0, 48, 16)]], 1)
+    r = both(empty(vcap), keys, np.ones(keys.shape[1], bool))
+    check(r["rounds"] > 48 and int(r["fresh"].sum()) == 48,
+          "fixture (e) is not a chain")
+    log(f"phase 3e same-home chain (48 keys): kernel == twin, "
+        f"{r['rounds']} rounds")
+    # (f) rehash-shaped: a 2^20 table at 0.40 load (itself filled by the
+    # kernel and held against the twin) reinserted in slot order into an
+    # empty 2^21 table, as Engine._rehash_tables does
+    n_old = int(0.40 * (1 << 20))
+    old = both(empty(1 << 20), _keys(rng, n_old, W, salt=6),
+               np.ones(n_old, bool))
+    occ = ~(old["table"] == -1).all(0)
+    keys = cvt.words_to_numpy(old["table"][:, occ].contiguous())
+    f = both(empty(1 << 21), keys, np.ones(keys.shape[1], bool))
+    check(bool(f["fresh"].all()) and not f["hovf"], "rehash lost keys")
+    f_ms = timed(f["src"], f["keys"], f["live"])
+    f_bound, f_probes, f_bytes = bound(f, 1 << 21)
+    log(f"phase 3f rehash-shaped ({keys.shape[1]} keys, 2^20 at 0.40 -> "
+        f"2^21) [{card}]: kernel == twin, {f['rounds']} rounds (fill "
+        f"{old['rounds']}); kernel {f_ms:.4f} ms (median of 5), plain twin "
+        f"{f['plain_ms']:.1f} ms, {f_probes} probes, {f_bytes} bytes")
+    # (g) the all-ones key (it equals EMPTY) among dead lanes: lanes 0
+    # and 1 take the first two slots of its path, so live all-ones lanes
+    # pass them and stop, as duplicates, at the third
+    vcap = 256
+    h1 = int(home_slots(torch.full((W, 1), -1, dtype=torch.int32),
+                        vcap)[0])
+    path = [(h1 + k * (k + 1) // 2) & (vcap - 1) for k in range(3)]
+    table = cvt.words_to_numpy(both(empty(vcap), _keys(rng, 80, W, salt=7),
+                                    np.ones(80, bool))["table"])
+    table[:, path] = 0xFFFFFFFF
+    ones = np.full((W, 1), 0xFFFFFFFF, np.uint32)
+    rest = _keys(rng, 40, W, salt=8)
+    keys = np.concatenate(
+        [_same_home(rng, 1, W, vcap, path[0], cvt, home_slots),
+         _same_home(rng, 1, W, vcap, path[1], cvt, home_slots), ones,
+         rest[:, :20], ones, ones, ones, rest[:, 20:], ones], 1)
+    live = np.ones(keys.shape[1], bool)
+    live[[23, 24, 25]] = False
+    r = both(table, keys, live)
+    pos = r["pos"].cpu().numpy()
+    check(pos[2] == path[2] and not r["fresh"][[2, 46]].any(),
+          "fixture (g): the all-ones lane did not pass the taken slots")
+    log(f"phase 3g all-ones key among dead lanes: kernel == twin, "
+        f"{r['rounds']} rounds")
+    return dict(max_abs_err=max(errs), ms=d_ms, plain_ms=d["plain_ms"],
+                bound_ms=d_bound, probes=d_probes, rounds=d["rounds"],
+                rehash_ms=f_ms, rehash_plain_ms=f["plain_ms"],
+                rehash_bound_ms=f_bound, rehash_rounds=f["rounds"],
+                fill_ms=fill_ms, fill_rounds=fill_rounds)
 
 
 def main():
@@ -239,14 +356,18 @@ def main():
     wall = time.perf_counter() - t0
     launches = fp.PROBE_CLAIM_LAUNCHES.count
     kern_total = fp.PROBE_CLAIM_LAUNCHES.total_ms()
+    rounds = fp.PROBE_CLAIM_LAUNCHES.rounds()
     fp.PROBE_CLAIM_LAUNCHES.reset()
+    per_launch = [r for r, _e in rounds]
     log(f"phase 4 config #1 [{card}]: distinct {res.distinct_states}, "
         f"depth {res.depth}, violations {len(res.violations)}, "
         f"generated {res.generated_states}")
     log(f"phase 4 config #1 [{card}]: wall {wall:.2f} s, "
         f"{res.distinct_states / wall:.0f} states/s")
     log(f"phase 4 config #1 [{card}]: probe_claim_insert launches "
-        f"{launches}, kernel time {kern_total:.1f} ms (CUDA events)")
+        f"{launches}, kernel time {kern_total:.1f} ms (CUDA events), "
+        f"claim rounds per launch max {max(per_launch, default=0)} mean "
+        f"{sum(per_launch) / max(len(per_launch), 1):.3f}")
     check(res.distinct_states == CONFIG1_DISTINCT,
           f"distinct {res.distinct_states} != {CONFIG1_DISTINCT}")
     check(res.depth == CONFIG1_DEPTH, f"depth {res.depth}")
@@ -256,6 +377,8 @@ def main():
           f"level sizes {res.level_sizes}")
     check(res.overflow_faults == 0, "overflow faults")
     check(launches > 0, "the main path never launched the kernel")
+    check(not any(e for _r, e in rounds),
+          "a main-path launch found no fixpoint")
     # phase 5: a witness trace on the micro config, card vs CPU
     micro = ModelConfig(
         n_servers=2, init_servers=(0, 1), values=(1,),
@@ -287,7 +410,14 @@ def main():
         "launches": launches, "max_abs_err": meas["max_abs_err"],
         "ms": meas["ms"], "plain_ms": meas["plain_ms"],
         "bound_ms": meas["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}))
+        "library_ms": None, "rounds": meas["rounds"],
+        "rehash_ms": meas["rehash_ms"],
+        "rehash_plain_ms": meas["rehash_plain_ms"],
+        "rehash_bound_ms": meas["rehash_bound_ms"],
+        "rehash_rounds": meas["rehash_rounds"],
+        "main_path_ms": kern_total,
+        "main_path_rounds_max": max(per_launch, default=0),
+        "main_path_rounds_mean": sum(per_launch) / max(len(per_launch), 1)}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

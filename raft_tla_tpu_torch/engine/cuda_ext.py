@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,6 +29,11 @@ NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+# claim state of csrc/probe_claim.cu per (device, VCAP): the u64 owner
+# words [2, VCAP] (all-ones: no owner) and u32 state [4] (the last epoch,
+# round counters); launches that share one run on one stream
+_claim_scratch: Dict[Tuple[torch.device, int],
+                     Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _nvcc() -> str:
@@ -75,10 +80,8 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.probe_claim_insert_cuda.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            *[ctypes.c_void_p] * 9, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.probe_claim_insert_cuda.restype = ctypes.c_int
         lib.probe_claim_error_string.argtypes = [ctypes.c_int]
         lib.probe_claim_error_string.restype = ctypes.c_char_p
@@ -86,12 +89,23 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def _scratch(device: torch.device, vcap: int):
+    got = _claim_scratch.get((device, vcap))
+    if got is None:
+        got = (torch.full((2, vcap), -1, dtype=torch.int64, device=device),
+               torch.zeros(4, dtype=torch.int32, device=device))
+        _claim_scratch[(device, vcap)] = got
+    return got
+
+
 def probe_claim_launch(table: torch.Tensor, keys: torch.Tensor,
                        live: torch.Tensor, max_rounds: int):
     """Launch csrc/probe_claim.cu on the current stream.  ``table``
     int32 [W, VCAP] (updated in place), keys int32 [W, M], live bool
-    [M].  Returns (fresh bool [M], pos int32 [M], hovf bool 0-d), all
-    on the table's device; nothing is synchronised."""
+    [M].  Returns (fresh bool [M], pos int32 [M], hovf bool 0-d,
+    rounds int32 0-d, error int32 0-d), all on the table's device;
+    nothing is synchronised.  ``rounds`` counts the claim rounds run;
+    ``error`` is 1 if M+1 of them found no fixpoint."""
     if not table.is_cuda:
         raise ValueError("probe_claim_launch needs a CUDA table")
     if table.dtype != torch.int32 or table.dim() != 2 or \
@@ -107,6 +121,8 @@ def probe_claim_launch(table: torch.Tensor, keys: torch.Tensor,
         raise ValueError("keys must be a contiguous int32 [W, M] on the "
                          "table's device")
     M = keys.shape[1]
+    if M >= (1 << 31) - 1:
+        raise ValueError(f"{M} keys: at most 2^31 - 2 per launch")
     if live.device != table.device or live.dtype != torch.bool or \
             live.shape != (M,) or not live.is_contiguous():
         raise ValueError("live must be a contiguous bool [M] on the "
@@ -115,15 +131,18 @@ def probe_claim_launch(table: torch.Tensor, keys: torch.Tensor,
         raise ValueError(f"max_rounds {max_rounds} out of range")
     fresh = torch.empty(M, dtype=torch.bool, device=table.device)
     pos = torch.empty(M, dtype=torch.int32, device=table.device)
-    hovf = torch.empty(1, dtype=torch.int32, device=table.device)
+    out = torch.empty(3, dtype=torch.int32, device=table.device)
+    k0 = torch.empty(M, dtype=torch.int32, device=table.device)
+    owner, state = _scratch(table.device, vcap)
     lib = library()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.probe_claim_insert_cuda(
             table.data_ptr(), keys.data_ptr(), live.data_ptr(),
-            fresh.data_ptr(), pos.data_ptr(), hovf.data_ptr(), W, vcap, M,
+            fresh.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            owner.data_ptr(), state.data_ptr(), k0.data_ptr(), W, vcap, M,
             max_rounds, stream)
     if rc != 0:
         raise RuntimeError("probe_claim kernel launch failed: "
                            f"{lib.probe_claim_error_string(rc).decode()}")
-    return fresh, pos, hovf[0] != 0
+    return fresh, pos, out[0] != 0, out[1], out[2]

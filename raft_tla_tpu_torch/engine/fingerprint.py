@@ -21,6 +21,8 @@ The second half of the module is the claim-insert dedup into the
 open-addressing visited table: ``probe_claim_insert`` launches the
 CUDA kernel (``csrc/probe_claim.cu``) on a CUDA table and runs its
 plain twin, ``probe_claim_insert_plain``, on a CPU table.
+``probe_claim_insert_rounds`` models the kernel's parallel claim rounds
+in plain torch, for the tests.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from ..config import CONFIG_ENTRY, MT_COC, NIL, ModelConfig
 from ..ops.kernels import I32, RaftKernels
 from ..ops.layout import Layout, get_field_t, put_field_t
-from ..utils import HOME_SALT, fmix32, fmix32_int, i32, ult
+from ..utils import HOME_SALT, fmix32, fmix32_int, home_slots, i32, ult
 
 
 def _salts(n: int, stream: int) -> np.ndarray:
@@ -287,8 +289,9 @@ class LaunchCounter:
     """Counts the kernel launches a wrapper makes (never the plain
     twin's calls): ``chip_smoke.py`` zeroes it before a run and reads
     it after, to show the run went through the kernel.  With
-    ``timing`` on, each launch is bracketed by CUDA events (no
-    synchronisation) and ``total_ms`` sums them afterwards."""
+    ``timing`` on, each launch is bracketed by CUDA events and its
+    device scalars (claim rounds, error word) are kept, with no
+    synchronisation; ``total_ms`` and ``rounds`` read them afterwards."""
 
     def __init__(self):
         self.reset()
@@ -297,11 +300,16 @@ class LaunchCounter:
         self.count = 0
         self.timing = timing
         self.events = []
+        self.stats = []
 
     def total_ms(self) -> float:
         if self.events:
             torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def rounds(self):
+        """[(rounds, error)] of each timed launch, in launch order."""
+        return [(int(r), int(e)) for r, e in self.stats]
 
 
 PROBE_CLAIM_LAUNCHES = LaunchCounter()
@@ -356,6 +364,114 @@ def probe_claim_insert_plain(table: torch.Tensor, keys: torch.Tensor,
             torch.tensor(hovf, device=dev))
 
 
+DUP, CLAIM, UNRESOLVED = 0, 1, 2     # a lane's result kind in one round
+
+
+def _claim_walk(table, keys, lanes, home, allones, k, owner,
+                max_rounds):
+    """One claim round's probe walk of ``lanes`` from probe step ``k``
+    (per lane) against the committed ``table`` and the previous round's
+    claim owners (``owner`` [VCAP], M where no lane claimed; None in
+    round 1).  Returns per lane the result kind, its slot, the step it
+    stopped at and whether that slot is empty in the committed table."""
+    vcap, M = table.shape[1], keys.shape[1]
+    n = lanes.numel()
+    tri = max_rounds * (max_rounds + 1) // 2
+    kind = torch.full((n,), UNRESOLVED, dtype=torch.int8,
+                      device=table.device)
+    slot = (home[lanes] + tri) & (vcap - 1)
+    step = k.clone()
+    at_empty = torch.zeros(n, dtype=torch.bool, device=table.device)
+    act = torch.arange(n, device=table.device)
+    kk = k.clone()
+    while True:
+        act = act[kk[act] < max_rounds]
+        if act.numel() == 0:
+            break
+        ln, ka = lanes[act], kk[act]
+        p = (home[ln] + ka * (ka + 1) // 2) & (vcap - 1)
+        cur, key = table[:, p], keys[:, ln]
+        empty = (cur == -1).all(0)
+        if owner is None:
+            owned = torch.zeros_like(empty)
+            same = owned
+        else:
+            o = owner[p]
+            # the order matters for the all-ones key, which equals an
+            # empty slot: a lower lane's claim is checked first
+            owned = empty & (o < ln)
+            same = owned & (keys[:, o.clamp(max=M - 1)] == key).all(0)
+        free = empty & ~owned
+        dup = same | (free & allones[ln]) | (~empty & (cur == key).all(0))
+        claim = free & ~allones[ln]
+        stop = dup | claim
+        s = act[stop]
+        kind[s] = torch.where(claim[stop], CLAIM, DUP).to(torch.int8)
+        slot[s] = p[stop]
+        step[s] = ka[stop]
+        at_empty[s] = empty[stop]
+        act = act[~stop]
+        kk[act] += 1
+    return kind, slot, step, at_empty
+
+
+def probe_claim_insert_rounds(table: torch.Tensor, keys: torch.Tensor,
+                              live: torch.Tensor,
+                              max_rounds: int = MAX_PROBE_ROUNDS):
+    """Model of the kernel's claim rounds (csrc/probe_claim.cu) in plain
+    torch, vectorised over lanes.  Per round every live lane that is not
+    final walks its probe path against the committed table (unchanged
+    during the rounds) and the previous round's owners — the lowest
+    lane that targeted each slot as a claim:
+
+      committed slot empty, owned by a lower lane j: a duplicate there
+        if key_j = key_i, else blocked (go on);
+      committed slot empty, no lower owner: a claim target (the
+        all-ones key, which equals EMPTY, is a duplicate there);
+      committed slot holds key_i: a duplicate;
+      otherwise go on; after ``max_rounds`` steps the lane is
+        unresolved.
+
+    A lane whose round-1 walk met no empty slot is final; the others
+    restart each round at their first empty slot.  Lane i is right from
+    round i+1 on, so the rounds stop within M+1, at the first round in
+    which no lane's result changed; that is the sequential outcome.
+    Then each claiming lane writes its key.  Returns the twin's
+    (fresh, pos, hovf) plus ``rounds``, the rounds run.  Only the tests
+    call it."""
+    vcap, M = table.shape[1], keys.shape[1]
+    dev = table.device
+    home = home_slots(keys, vcap).long()
+    allones = (keys == -1).all(0)
+    kind = torch.full((M,), DUP, dtype=torch.int8, device=dev)
+    slot = home.clone()
+    k0 = torch.zeros(M, dtype=torch.long, device=dev)
+    pend = live.clone()
+    owner = None
+    for rounds in range(1, M + 2):
+        idx = pend.nonzero().squeeze(1)
+        nk, ns, nstep, at_empty = _claim_walk(table, keys, idx, home,
+                                              allones, k0[idx], owner,
+                                              max_rounds)
+        changed = idx.numel() > 0 if rounds == 1 else bool(
+            ((nk != kind[idx]) | (ns != slot[idx])).any())
+        kind[idx], slot[idx] = nk, ns
+        if rounds == 1:
+            k0[idx] = nstep
+            pend[idx] = at_empty
+        claim = idx[nk == CLAIM]
+        owner = torch.full((vcap,), M, dtype=torch.long, device=dev)
+        owner.scatter_reduce_(0, slot[claim], claim, "amin")
+        if not changed:
+            break
+    else:
+        raise RuntimeError(f"claim rounds: no fixpoint after {M + 1}")
+    fresh = live & (kind == CLAIM)
+    table[:, slot[fresh]] = keys[:, fresh]
+    return (fresh, slot.to(torch.int32), (live & (kind == UNRESOLVED)).any(),
+            rounds)
+
+
 def probe_claim_insert(table: torch.Tensor, keys: torch.Tensor,
                        live: torch.Tensor,
                        max_rounds: int = MAX_PROBE_ROUNDS):
@@ -371,9 +487,11 @@ def probe_claim_insert(table: torch.Tensor, keys: torch.Tensor,
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
-    fresh, pos, hovf = probe_claim_launch(table, keys, live, max_rounds)
+    fresh, pos, hovf, rounds, err = probe_claim_launch(table, keys, live,
+                                                       max_rounds)
     if ctr.timing:
         ev[1].record()
         ctr.events.append(ev)
+        ctr.stats.append((rounds, err))
     ctr.count += 1
     return fresh, pos, hovf

@@ -1,6 +1,7 @@
-"""The CUDA dedup kernel against its plain twin, and the engine on the
-card against the engine on the CPU.  These need an NVIDIA GPU with
-nvcc (marker ``cuda``) and skip elsewhere; on the card run
+"""The CUDA dedup kernel against its plain twin and the CPU model of
+its claim rounds, and the engine on the card against the engine on the
+CPU.  These need an NVIDIA GPU with nvcc (marker ``cuda``) and skip
+elsewhere; on the card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -12,10 +13,11 @@ import torch
 from raft_tla_tpu_torch import convert as cvt
 from raft_tla_tpu_torch.config import Bounds, ModelConfig, NEXT_ASYNC
 from raft_tla_tpu_torch.engine.bfs import Engine
-from raft_tla_tpu_torch.engine.fingerprint import (PROBE_CLAIM_LAUNCHES,
-                                                   probe_claim_insert,
-                                                   probe_claim_insert_plain)
+from raft_tla_tpu_torch.engine.fingerprint import (
+    MAX_PROBE_ROUNDS, PROBE_CLAIM_LAUNCHES, probe_claim_insert,
+    probe_claim_insert_plain, probe_claim_insert_rounds)
 from raft_tla_tpu_torch.utils import fmix32_np
+from test_torch_dedup_rounds import build_case
 
 pytestmark = pytest.mark.cuda
 
@@ -34,33 +36,58 @@ def _keys(rng, n, W=2):
     return k
 
 
-@pytest.mark.parametrize("vcap,m,dup,load", [(128, 96, 24, 0.0),
-                                             (1024, 400, 400, 0.0),
-                                             (64, 8, 8, 1.0),
-                                             (1 << 16, 8192, 4096, 0.3)])
-def test_kernel_equals_twin(cuda, vcap, m, dup, load):
-    rng = np.random.RandomState(vcap + m)
+def _case(case, dev):
+    """(table, keys, live, max_rounds, hovf expected or None) on ``dev``:
+    a random fixture (vcap, m lanes over dup distinct keys, load) or a
+    named fixture of tests/test_torch_dedup_rounds.py."""
     W = 2
+    if isinstance(case, str):
+        table, keys, live, max_rounds = build_case(case)
+        return (cvt.words_to_torch(table, dev), cvt.words_to_torch(keys, dev),
+                torch.from_numpy(live).to(dev), max_rounds, None)
+    vcap, m, dup, load = case
+    rng = np.random.RandomState(vcap + m)
     pool = _keys(rng, int(load * vcap) + dup)
-    table = torch.full((W, vcap), -1, dtype=torch.int32, device=cuda)
+    table = torch.full((W, vcap), -1, dtype=torch.int32, device=dev)
     n_fill = int(load * vcap)
     if n_fill:
-        fill = cvt.words_to_torch(pool[:, :n_fill], cuda)
+        fill = cvt.words_to_torch(pool[:, :n_fill], dev)
         probe_claim_insert_plain(table, fill,
                                  torch.ones(n_fill, dtype=torch.bool,
-                                            device=cuda))
+                                            device=dev))
     keys = cvt.words_to_torch(pool[:, n_fill + rng.randint(0, dup, m)],
-                              cuda)
-    live = torch.from_numpy(rng.rand(m) > 0.2).to(cuda)
-    t_k, t_p = table.clone(), table.clone()
-    PROBE_CLAIM_LAUNCHES.reset()
-    fk, pk, hk = probe_claim_insert(t_k, keys, live)
+                              dev)
+    live = torch.from_numpy(rng.rand(m) > 0.2).to(dev)
+    return table, keys, live, MAX_PROBE_ROUNDS, load == 1.0
+
+
+@pytest.mark.parametrize("case", [(128, 96, 24, 0.0), (1024, 400, 400, 0.0),
+                                  (64, 8, 8, 1.0), (1 << 16, 8192, 4096, 0.3),
+                                  "chain", "all_ones"])
+def test_kernel_equals_twin(cuda, case):
+    """Kernel == twin bit for bit; two launches give the same outputs
+    and the same claim rounds as the CPU model of the rounds."""
+    table, keys, live, max_rounds, want_hovf = _case(case, cuda)
+    t_k, t_k2, t_p = table.clone(), table.clone(), table.clone()
+    PROBE_CLAIM_LAUNCHES.reset(timing=True)
+    fk, pk, hk = probe_claim_insert(t_k, keys, live, max_rounds)
+    out2 = probe_claim_insert(t_k2, keys, live, max_rounds)
     torch.cuda.synchronize()
-    assert PROBE_CLAIM_LAUNCHES.count == 1
-    fp, pp, hp = probe_claim_insert_plain(t_p, keys, live)
+    assert PROBE_CLAIM_LAUNCHES.count == 2
+    (r1, e1), (r2, e2) = PROBE_CLAIM_LAUNCHES.rounds()
+    PROBE_CLAIM_LAUNCHES.reset()
+    fp, pp, hp = probe_claim_insert_plain(t_p, keys, live, max_rounds)
     assert torch.equal(t_k, t_p)
     assert torch.equal(fk, fp) and torch.equal(pk, pp)
-    assert bool(hk) == bool(hp) == (load == 1.0)
+    assert bool(hk) == bool(hp)
+    if want_hovf is not None:
+        assert bool(hk) == want_hovf
+    assert torch.equal(t_k2, t_k) and torch.equal(out2[0], fk) and \
+        torch.equal(out2[1], pk) and bool(out2[2]) == bool(hk)
+    t_m = table.cpu()
+    *_o, rounds = probe_claim_insert_rounds(t_m, keys.cpu(), live.cpu(),
+                                            max_rounds)
+    assert r1 == r2 == rounds and e1 == e2 == 0
 
 
 def test_engine_on_the_card_equals_the_cpu(cuda):
