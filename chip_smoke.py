@@ -15,10 +15,19 @@ Phases (any failure exits non-zero before the final line):
      kernel's claim rounds must equal the CPU model's
      (``probe_claim_insert_rounds``); (d) and (f) are timed;
   4. the main path: ``Engine(config #1).check(max_states=2_000_000)``
-     on the card must give 2,540,315 distinct states, depth 19, no
+     on the card, with incremental fingerprints (the default at 6
+     permutations), must give 2,540,315 distinct states, depth 19, no
      violation, and the reference's level sizes; the kernel's launches
-     in this run are counted and timed, with their claim rounds;
-  5. ``trace --target FirstCommit`` on a micro config must give the
+     in this run are counted and timed, with their claim rounds; then
+     the same check timed with direct fingerprints
+     (``incremental_fp=False``), which must give the same answer;
+  5. BASELINE config #5 (5 servers, 120 permutations: "auto" resolves
+     to the orbit-sort canonicalizer) with the reference's 600,000-state
+     budget must give 937,554 distinct states, depth 20, no violation
+     and the reference's level sizes; its kernel launches are counted
+     and timed, and the chunks whose hard lanes took the min-over-perms
+     fallback are counted;
+  6. ``trace --target FirstCommit`` on a micro config must give the
      reference's 15-step witness, and the same micro check on the CPU
      (plain twin) must agree with the card.
 
@@ -57,6 +66,28 @@ MICRO_TRACE = ["Init", "Timeout(0)", "RequestVote(0,0)", "RequestVote(0,1)",
                "ClientRequest(0,1)", "AppendEntries(0,1)", "Receive[slot0]",
                "Receive[slot0]", "Receive[slot0]", "AdvanceCommitIndex(0)"]
 MICRO_TRACE_GID = 354
+# BASELINE config #5 (tools/measure_baseline.py: build_cfg(5), BUDGET[5])
+# and its answer (baseline_runs/config5.json); nothing of it is cut.
+CONFIG5_BOUNDS = dict(max_log_length=4, max_timeouts=3,
+                      max_client_requests=3)
+CONFIG5_SHAPE = dict(n_servers=5, init_servers=(0, 1, 2, 3, 4),
+                     invariants=("ConcurrentLeaders",))
+CONFIG5_MAX_STATES = 600_000
+CONFIG5_DISTINCT, CONFIG5_DEPTH = 937_554, 20
+# the port's capacities for config #5 (the counts do not depend on them):
+# the largest level holds 413,567 rows after constraints, the table ends
+# under 0.12 load at 2^23 slots, and hcap, the hard-lane buffer per
+# chunk, holds the most hard lanes a chunk has (1,113), so no level
+# replays for it
+CONFIG5_ENGINE = dict(chunk=2048, lcap=1 << 20, vcap=1 << 23, ocap=1 << 14,
+                      hcap=2048)
+# Post-constraint level sizes of config #5, levels 1..20, from the JAX
+# package's Engine on a CPU (JAX_PLATFORMS=cpu; "auto" resolved to sort):
+# Engine(build_cfg(5) on configs/tlc_membership/raft.cfg, chunk=1024,
+# burst=False, store_states=False).check(max_depth=20,
+# max_states=600_000) -> 937,554 distinct, depth 20, 0 violations.
+CONFIG5_LEVEL_SIZES = [1, 2, 4, 8, 15, 25, 41, 65, 100, 149, 218, 311, 438,
+                       612, 900, 1668, 4877, 20276, 92622, 413567]
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 # about 1 ms of device sleep at the H100's 1.98 GHz boost clock
@@ -315,6 +346,56 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
                 fill_ms=fill_ms, fill_rounds=fill_rounds)
 
 
+def run_path(torch, fp, Engine, cfg, engine_kw, max_states):
+    """Drive ``Engine(cfg).check`` on the card with the kernel's launch
+    counter zeroed just before and read just after."""
+    eng = Engine(cfg, store_states=False, device="cuda", **engine_kw)
+    torch.cuda.synchronize()
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    ctr.reset(timing=True)
+    t0 = time.perf_counter()
+    res = eng.check(max_states=max_states)
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    kernel_ms = ctr.total_ms()
+    rounds = ctr.rounds()
+    ctr.reset()
+    per_launch = [r for r, _e in rounds]
+    check(launches > 0, "the main path never launched the kernel")
+    check(not any(e for _r, e in rounds),
+          "a main-path launch found no fixpoint")
+    return dict(
+        eng=eng, res=res, wall=wall, launches=launches,
+        kernel_ms=kernel_ms, rounds_max=max(per_launch, default=0),
+        rounds_mean=sum(per_launch) / max(len(per_launch), 1),
+        sym_canon=res.sym_canon,
+        incremental=eng.incremental_fp and eng.fpr.supports_incremental())
+
+
+def report(name, r, card):
+    res = r["res"]
+    log(f"{name} [{card}]: distinct {res.distinct_states}, depth "
+        f"{res.depth}, violations {len(res.violations)}, generated "
+        f"{res.generated_states}")
+    log(f"{name} [{card}]: wall {r['wall']:.2f} s, "
+        f"{res.distinct_states / r['wall']:.0f} states/s")
+    log(f"{name} [{card}]: probe_claim_insert launches {r['launches']}, "
+        f"kernel time {r['kernel_ms']:.1f} ms (CUDA events), claim rounds "
+        f"per launch max {r['rounds_max']} mean {r['rounds_mean']:.3f}")
+
+
+def check_answer(name, r, distinct, depth, level_sizes):
+    res = r["res"]
+    check(res.distinct_states == distinct,
+          f"{name}: distinct {res.distinct_states} != {distinct}")
+    check(res.depth == depth, f"{name}: depth {res.depth} != {depth}")
+    check(not res.violations and res.violations_global == 0,
+          f"{name} reported violations")
+    check(res.level_sizes == level_sizes,
+          f"{name}: level sizes {res.level_sizes}")
+    check(res.overflow_faults == 0, f"{name}: overflow faults")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -345,41 +426,39 @@ def main():
     log(f"phase 2 build and load: {time.perf_counter() - t0:.1f} s")
     # phase 3
     meas = kernel_phase(torch, fp, cvt, home_slots, card)
-    # phase 4: the main path
+    # phase 4: the main path, config #1, incremental fingerprints
     cfg1 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
                       bounds=Bounds.make(**CONFIG1_BOUNDS))
-    eng = Engine(cfg1, store_states=False, device="cuda", **CONFIG1_ENGINE)
-    torch.cuda.synchronize()
-    fp.PROBE_CLAIM_LAUNCHES.reset(timing=True)
-    t0 = time.perf_counter()
-    res = eng.check(max_states=CONFIG1_MAX_STATES)
-    wall = time.perf_counter() - t0
-    launches = fp.PROBE_CLAIM_LAUNCHES.count
-    kern_total = fp.PROBE_CLAIM_LAUNCHES.total_ms()
-    rounds = fp.PROBE_CLAIM_LAUNCHES.rounds()
-    fp.PROBE_CLAIM_LAUNCHES.reset()
-    per_launch = [r for r, _e in rounds]
-    log(f"phase 4 config #1 [{card}]: distinct {res.distinct_states}, "
-        f"depth {res.depth}, violations {len(res.violations)}, "
-        f"generated {res.generated_states}")
-    log(f"phase 4 config #1 [{card}]: wall {wall:.2f} s, "
-        f"{res.distinct_states / wall:.0f} states/s")
-    log(f"phase 4 config #1 [{card}]: probe_claim_insert launches "
-        f"{launches}, kernel time {kern_total:.1f} ms (CUDA events), "
-        f"claim rounds per launch max {max(per_launch, default=0)} mean "
-        f"{sum(per_launch) / max(len(per_launch), 1):.3f}")
-    check(res.distinct_states == CONFIG1_DISTINCT,
-          f"distinct {res.distinct_states} != {CONFIG1_DISTINCT}")
-    check(res.depth == CONFIG1_DEPTH, f"depth {res.depth}")
-    check(not res.violations and res.violations_global == 0,
-          "config #1 reported violations")
-    check(res.level_sizes == CONFIG1_LEVEL_SIZES,
-          f"level sizes {res.level_sizes}")
-    check(res.overflow_faults == 0, "overflow faults")
-    check(launches > 0, "the main path never launched the kernel")
-    check(not any(e for _r, e in rounds),
-          "a main-path launch found no fixpoint")
-    # phase 5: a witness trace on the micro config, card vs CPU
+    c1 = run_path(torch, fp, Engine, cfg1, CONFIG1_ENGINE,
+                  CONFIG1_MAX_STATES)
+    check(c1["incremental"], "config #1 did not run incremental")
+    report("phase 4 config #1 (incremental fingerprints)", c1, card)
+    check_answer("config #1", c1, CONFIG1_DISTINCT, CONFIG1_DEPTH,
+                 CONFIG1_LEVEL_SIZES)
+    c1d = run_path(torch, fp, Engine, cfg1,
+                   dict(CONFIG1_ENGINE, incremental_fp=False),
+                   CONFIG1_MAX_STATES)
+    check(not c1d["incremental"], "config #1 direct ran incremental")
+    report("phase 4 config #1 (direct fingerprints)", c1d, card)
+    check_answer("config #1 direct", c1d, CONFIG1_DISTINCT, CONFIG1_DEPTH,
+                 CONFIG1_LEVEL_SIZES)
+    log(f"phase 4 config #1 [{card}]: wall incremental {c1['wall']:.2f} s, "
+        f"direct {c1d['wall']:.2f} s")
+    # phase 5: config #5, the orbit-sort canonicalizer
+    cfg5 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
+                      bounds=Bounds.make(**CONFIG5_BOUNDS))
+    cfg5 = cfg5.with_(**CONFIG5_SHAPE)
+    c5 = run_path(torch, fp, Engine, cfg5, CONFIG5_ENGINE,
+                  CONFIG5_MAX_STATES)
+    check(c5["sym_canon"] == 1, "config #5 did not resolve to sort")
+    report("phase 5 config #5 (orbit-sort)", c5, card)
+    res5 = c5["res"]
+    log(f"phase 5 config #5 [{card}]: hard-lane fallback in "
+        f"{res5.hard_chunks} chunks, {res5.hard_lanes} hard lanes, at most "
+        f"{res5.hard_chunk_max} in a chunk (HCAP {c5['eng'].HCAP})")
+    check_answer("config #5", c5, CONFIG5_DISTINCT, CONFIG5_DEPTH,
+                 CONFIG5_LEVEL_SIZES)
+    # phase 6: a witness trace on the micro config, card vs CPU
     micro = ModelConfig(
         n_servers=2, init_servers=(0, 1), values=(1,),
         next_family=NEXT_ASYNC, symmetry=True, max_inflight_override=2,
@@ -398,7 +477,7 @@ def main():
     check(runs["cuda"][2] == MICRO_TRACE_GID and
           runs["cuda"][3] == MICRO_TRACE,
           f"FirstCommit witness {runs['cuda'][2:]}")
-    log(f"phase 5 FirstCommit witness: {len(MICRO_TRACE) - 1} steps, "
+    log(f"phase 6 FirstCommit witness: {len(MICRO_TRACE) - 1} steps, "
         "card == CPU == reference")
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
@@ -407,7 +486,7 @@ def main():
         "name": "probe_claim_insert", "route": "cuda",
         "source": "raft_tla_tpu_torch/csrc/probe_claim.cu",
         "replaces": "raft_tla_tpu/engine/fingerprint.py:1025",
-        "launches": launches, "max_abs_err": meas["max_abs_err"],
+        "launches": c5["launches"], "max_abs_err": meas["max_abs_err"],
         "ms": meas["ms"], "plain_ms": meas["plain_ms"],
         "bound_ms": meas["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "rounds": meas["rounds"],
@@ -415,9 +494,13 @@ def main():
         "rehash_plain_ms": meas["rehash_plain_ms"],
         "rehash_bound_ms": meas["rehash_bound_ms"],
         "rehash_rounds": meas["rehash_rounds"],
-        "main_path_ms": kern_total,
-        "main_path_rounds_max": max(per_launch, default=0),
-        "main_path_rounds_mean": sum(per_launch) / max(len(per_launch), 1)}]}))
+        "main_path_ms": c5["kernel_ms"],
+        "main_path_rounds_max": c5["rounds_max"],
+        "main_path_rounds_mean": c5["rounds_mean"],
+        "config1_launches": c1["launches"],
+        "config1_ms": c1["kernel_ms"],
+        "config1_direct_launches": c1d["launches"],
+        "config1_direct_ms": c1d["kernel_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

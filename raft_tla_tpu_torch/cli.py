@@ -9,8 +9,9 @@
 
 The bounds flags override the cfg's in-spec bounds as the reference
 CLI's do; ``--device`` picks the device (default cuda; the run raises
-when CUDA is absent unless ``--device cpu`` is given).  The stats keys
-are the reference CLI's names for the fields this port fills.
+when CUDA is absent unless ``--device cpu`` is given); ``--sym-canon``
+picks the symmetry canonicalizer as the reference's does.  The stats
+keys are the reference CLI's names for the fields this port fills.
 """
 
 from __future__ import annotations
@@ -72,6 +73,8 @@ def check_stats(res, fp_bits: int) -> dict:
         "expected_fp_collisions": float(
             distinct * distinct / 2.0 ** (fp_bits + 1)),
         "level_sizes": list(res.level_sizes),
+        # 1 = orbit-sort, 0 = min-over-perms: the resolved --sym-canon
+        "sym_canon": res.sym_canon,
         "spec": "raft",
     }
 
@@ -80,7 +83,7 @@ def _engine(cfg, args, store_states):
     from .engine.bfs import Engine
     return Engine(cfg, chunk=args.chunk, lcap=args.lcap, vcap=args.vcap,
                   ocap=args.ocap, store_states=store_states,
-                  device=args.device)
+                  sym_canon=args.sym_canon, device=args.device)
 
 
 def _print_trace(eng, v):
@@ -149,6 +152,16 @@ def main(argv=None) -> int:
         sp.add_argument("--stats-json", default=None, metavar="FILE")
         sp.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
+        sp.add_argument("--sym-canon", choices=("auto", "sort", "minperm"),
+                        default="auto",
+                        help="symmetry canonicalization: 'sort' hashes "
+                             "one orbit-sorted relabeling per state "
+                             "(signature ties fall back to the min over "
+                             "every permutation, so the state partition "
+                             "is the same); 'minperm' takes the min over "
+                             "every permutation; 'auto' (default) picks "
+                             "sort past 6 permutations.  Fingerprint "
+                             "values are mode-specific")
 
     pc = sub.add_parser("check", help="exhaustive model check")
     common(pc)

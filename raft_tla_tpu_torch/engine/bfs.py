@@ -7,8 +7,11 @@ the host keeps the counters and reads back a few scalars per chunk.
 
 Per frontier chunk (``_chunk_step``): guard-first expansion over the
 [B, A] lane grid, successor materialization for the enabled lanes,
-the symmetry-canonical fingerprint, claim-insert dedup into the visited
-table (``fingerprint.probe_claim_insert`` — the CUDA kernel), then
+the symmetry-canonical fingerprint (incremental from per-parent term
+tables where the fingerprinter supports it, else direct: minperm, or
+orbit-sort with the hard lanes' min over every permutation), claim-
+insert dedup into the visited table (``fingerprint.probe_claim_insert``
+— the CUDA kernel), then
 invariants and constraints on the fresh rows and their append to the
 level buffer.  ``_finalize`` commits the level (the level buffer
 becomes the frontier) or, when a buffer overflowed, rolls the visited
@@ -19,8 +22,10 @@ This is the reference's per-level driver (``raft_tla_tpu/engine/
 bfs.py``, ``burst=False``) with the same capacity model: ``chunk``
 frontier rows per step, LCAP level rows (an OCAP append margin
 reserved), FCAP enabled candidates per chunk, OCAP fresh rows per
-chunk, VCAP table slots (a power of two, grown ×4 past load 0.40), and
-per-family caps; any overflow replays the level with the cap grown.
+chunk, VCAP table slots (a power of two, grown ×4 past load 0.40),
+per-family caps, and in sort mode HCAP hard lanes per chunk (the
+fallback's fixed-width buffer, so finding them needs no host sync);
+any overflow replays the level with the cap grown.
 State identity, first-seen order and global ids equal the
 reference's: candidates are enumerated in ascending (row, lane) order
 and the dedup resolves lanes in that order.
@@ -70,6 +75,12 @@ class CheckResult:
         self.violations: List[Violation] = []
         self.level_sizes: List[int] = []
         self.seconds = 0.0
+        # 1 = orbit-sort canonical fingerprints, 0 = min-over-perms (the
+        # resolved mode, as the reference reports it)
+        self.sym_canon = 0
+        # sort mode: hard lanes that took the min-over-perms fallback,
+        # the chunks that had any, and the most in one chunk
+        self.hard_lanes = self.hard_chunks = self.hard_chunk_max = 0
 
     def __repr__(self):
         return (f"CheckResult(distinct_states={self.distinct_states}, "
@@ -115,13 +126,16 @@ class _Level:
         self.n_lvl = 0
         self.n_gen = 0
         self.ovf = self.fovf = self.hovf = self.oovf = False
+        self.hcovf = False      # more hard lanes in a chunk than HCAP
+        self.hard = [0, 0, 0]   # hard lanes, chunks with any, chunk max
         self.famx = [0] * n_fams
         self.ofx = 0            # max fresh rows in any chunk
         self.base = 0           # chunk cursor within the frontier
 
     @property
     def bad(self) -> bool:
-        return self.ovf or self.fovf or self.hovf or self.oovf
+        return self.ovf or self.fovf or self.hovf or self.oovf or \
+            self.hcovf
 
 
 class Engine:
@@ -134,6 +148,14 @@ class Engine:
     fcap     — enabled-candidate capacity per chunk (default as the
                reference: min(chunk·A, max(chunk·16, 8192))).
     ocap     — fresh-row capacity per chunk.
+    incremental_fp — incremental per-action fingerprints where the
+               fingerprinter supports them (minperm, at most 24
+               permutations); bit-identical to the direct path.
+    sym_canon — "auto" (sort past 6 permutations), "sort" or "minperm"
+               (``fingerprint.resolve_sym_canon``).
+    hcap     — sort mode: hard lanes per chunk that the fallback's
+               fixed-width buffer holds (default: chunk); grows on
+               overflow.
     device   — "cuda" by default; "cpu" only when asked for.
     """
 
@@ -143,6 +165,8 @@ class Engine:
                  store_states: bool = True,
                  lcap: int = 1 << 14, vcap: int = 1 << 17,
                  fcap: Optional[int] = None, ocap: Optional[int] = None,
+                 incremental_fp: bool = True, sym_canon: str = "auto",
+                 hcap: Optional[int] = None,
                  device: Optional[str] = None):
         if cfg.prefix_pins or cfg.action_constraints:
             raise NotImplementedError(
@@ -160,7 +184,8 @@ class Engine:
         self.kern = self.ir.make_kernels(self.lay)
         self.expander = Expander(cfg, self.device)
         self.fpr = self.ir.make_fingerprinter(
-            cfg, sym_canon=resolve_sym_canon(cfg))
+            cfg, sym_canon=resolve_sym_canon(cfg, sym_canon))
+        self.incremental_fp = incremental_fp
         self.preds = self.ir.make_predicates(self.lay)
         self.inv_names = list(cfg.invariants)
         self.con_names = list(cfg.constraints)
@@ -176,6 +201,7 @@ class Engine:
             max(lcap, 4 * self.chunk, 4 * self.FCAP))
         self.VCAP = 1 << _ceil_log2(int(vcap))
         self.FAM_CAPS = self.expander.default_fam_caps(self.chunk)
+        self.HCAP = int(hcap) if hcap else self.chunk
 
     def _round_cap(self, n: int) -> int:
         c = self.chunk
@@ -267,22 +293,40 @@ class Engine:
         # journal stays the exact record of this level's table writes
         if st.bad or n_e == 0:
             return
-        cand = self.expander.materialize(sv, derb, lanes, counts)
         st.n_gen += n_e
-        keys = self.fpr.fingerprint_batch_T(cand)              # [W, n_e]
+        n_hard = None
+        if self.incremental_fp and self.fpr.supports_incremental():
+            tables = self.fpr.parent_tables(sv)
+            cand, keys = self.expander.materialize(
+                sv, derb, lanes, counts, delta_fp=(self.fpr, tables))
+        else:
+            cand = self.expander.materialize(sv, derb, lanes, counts)
+            keys, n_hard = self.fpr.fingerprint_chunk_T(cand, self.HCAP)
         live = torch.ones(n_e, dtype=torch.bool, device=self.device)
         fresh, pos, hv = probe_claim_insert(st.vis, keys, live)
-        st.hovf |= bool(hv)
+        hcovf_now = False
+        if n_hard is None:
+            st.hovf |= bool(hv)
+        else:
+            # one read for the probe budget and the hard-lane count
+            hv, nh = torch.stack([hv.to(torch.int64),
+                                  n_hard.to(torch.int64)]).tolist()
+            st.hovf |= bool(hv)
+            st.hard = [st.hard[0] + nh, st.hard[1] + (nh > 0),
+                       max(st.hard[2], nh)]
+            hcovf_now = nh > self.HCAP
         fidx = fresh.nonzero().squeeze(1)
         n_fresh = fidx.shape[0]
-        # the two chunk-local overflows share the revert path: level
-        # buffer full (ovf; the margin is OCAP) and fresh rows past OCAP
+        # the chunk-local overflows share the revert path: level buffer
+        # full (ovf; the margin is OCAP), fresh rows past OCAP, and hard
+        # lanes past HCAP (some keys were not canonical)
         ovf_now = st.n_lvl + n_fresh > st.lcap - self.OCAP
         oovf_now = n_fresh > self.OCAP
-        if ovf_now or oovf_now:
+        if ovf_now or oovf_now or hcovf_now:
             st.vis[:, pos[fidx].long()] = EMPTY
             st.ovf |= ovf_now
             st.oovf |= oovf_now
+            st.hcovf |= hcovf_now
             return
         rows = {k: v[..., fidx] for k, v in cand.items()}
         inv, con = self._phase2_T(rows)
@@ -306,7 +350,8 @@ class Engine:
     def _finalize(self, st: _Level) -> Tuple[List[int], torch.Tensor]:
         """Returns (scal, inv_ok): scal = [n_lvl, n_viol, faults,
         n_front, ovf, fovf, n_gen, n_expand, hovf, oovf, ofx] + famx,
-        the reference's per-level scalar row."""
+        the reference's per-level scalar row, + [hcovf, the most hard
+        lanes in one chunk]."""
         n_lvl = st.n_lvl
         inv_ok = st.linv[:, :n_lvl]
         con = st.lcon[:n_lvl]
@@ -327,9 +372,13 @@ class Engine:
             st.n_front = n_lvl
             st.pg_off = st.g_off
             st.g_off += n_lvl
+            h = self.hard_stats
+            self.hard_stats = [h[0] + st.hard[0], h[1] + st.hard[1],
+                               max(h[2], st.hard[2])]
         scal = [n_lvl, n_viol, faults, st.n_front, int(st.ovf),
                 int(st.fovf), st.n_gen, n_expand, int(st.hovf),
-                int(st.oovf), st.ofx] + list(st.famx)
+                int(st.oovf), st.ofx] + list(st.famx) + \
+            [int(st.hcovf), st.hard[2]]
         st.reset(len(self.expander.families))
         return scal, inv_ok
 
@@ -369,6 +418,7 @@ class Engine:
               verbose: bool = False) -> CheckResult:
         t0 = time.perf_counter()
         self._states, self._parents, self._lanes = [], [], []
+        self.hard_stats = [0, 0, 0]
         roots, rk = self._dedup_roots()
         n_roots = len(rk)
         res = CheckResult(generated_states=n_roots)
@@ -446,7 +496,8 @@ class Engine:
                 scal, inv_ok = self._finalize(st)
                 ovf, fovf, hovf, oovf = (bool(scal[4]), bool(scal[5]),
                                          bool(scal[8]), bool(scal[9]))
-                if not (ovf or fovf or hovf or oovf):
+                hcovf = bool(scal[-2])
+                if not (ovf or fovf or hovf or oovf or hcovf):
                     break
                 # overflow: the table was rolled back and the frontier
                 # kept, so grow and replay the level exactly
@@ -472,15 +523,20 @@ class Engine:
                     self.LCAP = self._round_cap(
                         max((4 * self.LCAP) if ovf else self.LCAP,
                             4 * self.OCAP))
+                if hcovf:
+                    # a chunk had more hard lanes than the buffer holds
+                    while self.HCAP < 2 * scal[-1]:
+                        self.HCAP *= 2
                 if hovf:
                     # probe walk blew its round budget: table too full
                     self.VCAP *= 4
                     st.vis = self._rehash_tables(st.vis, self.VCAP)
                 if verbose:
                     print(f"level {depth}: buffer overflow (ovf={ovf} "
-                          f"fovf={fovf} hovf={hovf} oovf={oovf}), "
-                          f"LCAP={self.LCAP} FCAP={self.FCAP} "
-                          f"OCAP={self.OCAP} VCAP={self.VCAP}")
+                          f"fovf={fovf} hovf={hovf} oovf={oovf} "
+                          f"hcovf={hcovf}), LCAP={self.LCAP} "
+                          f"FCAP={self.FCAP} OCAP={self.OCAP} "
+                          f"VCAP={self.VCAP} HCAP={self.HCAP}")
                 if (self.LCAP, self.FCAP, self.OCAP) != old_caps:
                     if self.LCAP != st.lcap:
                         st = self._grow(st, self.LCAP)
@@ -494,6 +550,9 @@ class Engine:
                       f"{n_chunks} chunks in "
                       f"{time.perf_counter() - t1:.2f}s")
         res.depth = depth
+        res.sym_canon = int(self.fpr.sym_canon == "sort")
+        res.hard_lanes, res.hard_chunks, res.hard_chunk_max = \
+            self.hard_stats
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         res.seconds = time.perf_counter() - t0

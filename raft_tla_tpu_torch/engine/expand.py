@@ -100,16 +100,22 @@ class Expander:
         return torch.bincount(fam, minlength=len(self.families))
 
     def materialize(self, svT, derT, lanes: torch.Tensor,
-                    counts: List[int]) -> Dict[str, torch.Tensor]:
+                    counts: List[int], delta_fp=None):
         """Successor rows [..., n] for the enabled flat lanes ``lanes``
         (ascending = enumeration order) of the batch-last chunk svT;
         ``counts`` are the per-family lane counts (family_counts).
-        Each family's kernel runs once, on its own rows."""
+        Each family's kernel runs once, on its own rows.
+
+        delta_fp — optional (fingerprinter, parent_tables) pair: each
+        family also computes its candidates' per-permutation hashes
+        incrementally from the parent tables (``family_delta``), and
+        the result is (cand, fp) with the sealed canonical
+        fingerprints fp [n_streams, n]."""
         A = self.n_lanes
         rows, lane = lanes // A, lanes % A
         fam = self._fam_of[lane]
         order = torch.argsort(fam, stable=True)       # family-major
-        outs = []
+        outs, fp_outs = [], []
         lo = 0
         for fi, (f, n) in enumerate(zip(self.families, counts)):
             if n == 0:
@@ -121,11 +127,22 @@ class Expander:
             sv_rows = {k: v[..., b] for k, v in svT.items()}
             der_rows = {k: v[..., b] for k, v in derT.items()}
             prm = [p[li] for p in self._params[fi]]
-            outs.append(f.fn(sv_rows, der_rows, *prm))
-        cand = {}
-        for k in self.keys:
-            cat = torch.cat([o[k] for o in outs], dim=-1)
+            # int32 rows whatever a kernel's arithmetic promoted to (the
+            # incremental deltas wrap in int32, as the reference's do)
+            outs.append({k: v.to(torch.int32) for k, v in
+                         f.fn(sv_rows, der_rows, *prm).items()})
+            if delta_fp is not None:
+                fpr, tables = delta_fp
+                fp_outs.append(fpr.family_delta(f.name, tables, b, sv_rows,
+                                                outs[-1], prm))
+
+        def unsort(parts):
+            cat = torch.cat(parts, dim=-1)
             out = torch.empty_like(cat)
             out[..., order] = cat
-            cand[k] = out
-        return cand
+            return out
+
+        cand = {k: unsort([o[k] for o in outs]) for k in self.keys}
+        if delta_fp is None:
+            return cand
+        return cand, delta_fp[0].finish_min(unsort(fp_outs))

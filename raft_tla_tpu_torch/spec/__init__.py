@@ -42,6 +42,9 @@ class SpecIR:
     make_predicates: Callable         # lay -> device predicate object
     make_fingerprinter: Callable      # (cfg, sym_canon) -> fingerprinter
     symmetry_perms: Callable          # cfg -> [perm tuples]
+    # (fpr, svT, prep) -> sig [S, N]: the permutation-equivariant
+    # per-server signature the orbit-sort canonicalizer argsorts
+    server_signature: Callable = None
 
     @property
     def all_keys(self) -> Tuple[str, ...]:

@@ -155,6 +155,10 @@ def build_ir() -> SpecIR:
         from ..engine.fingerprint import RaftFingerprinter
         return RaftFingerprinter(cfg, sym_canon=sym_canon)
 
+    def server_signature(fpr, svT, prep):
+        from ..engine.fingerprint import raft_server_signature
+        return raft_server_signature(fpr, svT, prep)
+
     return SpecIR(
         name="raft",
         make_layout=Layout,
@@ -171,4 +175,5 @@ def build_ir() -> SpecIR:
         make_predicates=Predicates,
         make_fingerprinter=make_fingerprinter,
         symmetry_perms=symmetry_perms,
+        server_signature=server_signature,
     )

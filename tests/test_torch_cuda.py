@@ -106,3 +106,55 @@ def test_engine_on_the_card_equals_the_cpu(cuda):
                     sorted((v.invariant, v.state_id)
                            for v in res.violations)))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("mode", ["sort", "incremental"])
+def test_fingerprint_modes_on_the_card_equal_the_cpu(cuda, mode):
+    """The engine in sort mode (forced at 3 servers, P = 6) and with
+    incremental fingerprints gives the CPU's answer on the card."""
+    cfg = ModelConfig(n_servers=3, init_servers=(0, 1, 2), values=(1,),
+                      next_family=NEXT_ASYNC, symmetry=True,
+                      max_inflight_override=2,
+                      invariants=("ElectionSafety", "FirstCommit"),
+                      bounds=Bounds.make(max_log_length=1, max_timeouts=1,
+                                         max_client_requests=1))
+    kw = dict(sym_canon="sort") if mode == "sort" else \
+        dict(sym_canon="minperm", incremental_fp=True)
+    out = []
+    for dev in ("cuda", "cpu"):
+        eng = Engine(cfg, chunk=64, hcap=8, device=dev, **kw)
+        res = eng.check(max_depth=16)
+        out.append((res.distinct_states, res.generated_states, res.depth,
+                    res.level_sizes, res.sym_canon,
+                    sorted((v.invariant, v.state_id)
+                           for v in res.violations)))
+    assert out[0] == out[1]
+
+
+def test_sort_fingerprints_on_the_card_equal_the_cpu(cuda):
+    """Config #5's shape (S=5, P=120): sort-mode values of reachable
+    states and 1-WL-hard states (votedFor cycles) are the CPU's, in both
+    the exact and the fixed-width hard-lane forms."""
+    from raft_tla_tpu_torch.engine.fingerprint import RaftFingerprinter
+    cfg = ModelConfig(n_servers=5, init_servers=(0, 1, 2, 3, 4),
+                      values=(1,), next_family=NEXT_ASYNC, symmetry=True,
+                      max_inflight_override=4,
+                      bounds=Bounds.make(max_log_length=4, max_timeouts=3,
+                                         max_client_requests=3))
+    eng = Engine(cfg, chunk=256, device="cpu")
+    eng.check(max_depth=5)
+    rows = {k: np.concatenate([b[k] for b in eng._states])
+            for k in eng._states[0]}
+    for vf in ((1, 2, 3, 4, 0), (1, 2, 0, 4, 3)):
+        one = {k: v[:1].copy() for k, v in rows.items()}
+        one["vf"][0] = vf
+        rows = {k: np.concatenate([one[k], v]) for k, v in rows.items()}
+    fpr = RaftFingerprinter(cfg, sym_canon="sort")
+    svT = {k: v.to(torch.int32) for k, v in
+           eng.ir.widen(cvt.rows_to_torch(rows)).items()}
+    want = fpr.fingerprint_batch_T(svT)
+    got = fpr.fingerprint_batch_T({k: v.to(cuda) for k, v in svT.items()})
+    assert torch.equal(got.cpu(), want)
+    fixed, n_hard = fpr.fingerprint_chunk_T(
+        {k: v.to(cuda) for k, v in svT.items()}, 16)
+    assert int(n_hard) >= 2 and torch.equal(fixed.cpu(), want)

@@ -1,16 +1,22 @@
 """Where the time goes in the PyTorch/CUDA port's check on one GPU.
 
-    python tools/torch_profile.py [--max-depth 17] [--out FILE]
+    python tools/torch_profile.py [--config 1|5] [--max-depth 17]
+                                  [--incremental-fp 0|1] [--hcap N]
+                                  [--no-profile] [--out FILE]
 
-Runs BASELINE config #1 (the chip_smoke.py configuration) through
-``raft_tla_tpu_torch`` on the CUDA device: once plain, for the wall
-time, and once under ``torch.profiler`` (CPU + CUDA activities), for
-the device time per kernel name.  Prints one JSON object: the card,
-the run's counts, wall seconds, the dedup kernel's launches and event
-time, the device-busy total, the idle share of the plain run's wall,
-and the top kernels by device time.  A depth cut keeps the profiler's
-trace small; the runs explore the same levels (a first, unmeasured run
-warms the allocator).
+Runs BASELINE config #1 or #5 (the chip_smoke.py configurations and
+capacities) through ``raft_tla_tpu_torch`` on the CUDA device, in the
+engine's default fingerprint mode unless ``--incremental-fp 0`` turns
+the incremental path off: once plain, for the wall time, and once
+under ``torch.profiler`` (CPU + CUDA activities), for the device time
+per kernel name (``--no-profile`` skips this run: the profiler's
+summary takes minutes past ~10^5 launches).  Prints one JSON object:
+the card, the run's counts, wall seconds, the dedup kernel's launches
+and event time, the hard lanes of the orbit-sort fallback, the
+device-busy total, the idle share of the plain run's wall, and the top
+kernels by device time.  A depth cut keeps the profiler's trace small;
+the runs explore the same levels (a first, unmeasured run warms the
+allocator).
 """
 
 import argparse
@@ -25,7 +31,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", type=int, choices=(1, 5), default=1)
     ap.add_argument("--max-depth", type=int, default=17)
+    ap.add_argument("--incremental-fp", type=int, choices=(0, 1),
+                    default=1)
+    ap.add_argument("--hcap", type=int, default=None,
+                    help="hard-lane buffer (default: the config's)")
+    ap.add_argument("--profile", action=argparse.BooleanOptionalAction,
+                    default=True)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -45,42 +58,38 @@ def main(argv=None):
     card = cs.card_line()
     cuda_ext.library()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cfg = load_model(os.path.join(root, "configs/tlc_membership/raft.cfg"),
-                     bounds=Bounds.make(**cs.CONFIG1_BOUNDS))
+    path = os.path.join(root, "configs/tlc_membership/raft.cfg")
+    if args.config == 1:
+        cfg = load_model(path, bounds=Bounds.make(**cs.CONFIG1_BOUNDS))
+        engine_kw, budget = cs.CONFIG1_ENGINE, cs.CONFIG1_MAX_STATES
+    else:
+        cfg = load_model(path, bounds=Bounds.make(**cs.CONFIG5_BOUNDS))
+        cfg = cfg.with_(**cs.CONFIG5_SHAPE)
+        engine_kw, budget = cs.CONFIG5_ENGINE, cs.CONFIG5_MAX_STATES
+    if args.hcap:
+        engine_kw = dict(engine_kw, hcap=args.hcap)
 
     def run():
         eng = Engine(cfg, store_states=False, device="cuda",
-                     **cs.CONFIG1_ENGINE)
+                     incremental_fp=bool(args.incremental_fp), **engine_kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = eng.check(max_depth=args.max_depth,
-                        max_states=cs.CONFIG1_MAX_STATES)
-        return res, time.perf_counter() - t0
+        res = eng.check(max_depth=args.max_depth, max_states=budget)
+        return res, time.perf_counter() - t0, eng
 
     run()                                  # warm-up: allocator, kernels
     fp.PROBE_CLAIM_LAUNCHES.reset(timing=True)
-    res, wall = run()
+    res, wall, eng = run()
     launches = fp.PROBE_CLAIM_LAUNCHES.count
     dedup_ms = fp.PROBE_CLAIM_LAUNCHES.total_ms()
     fp.PROBE_CLAIM_LAUNCHES.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _res, wall_prof = run()
-    # device-side events only (the kernels): an operator's row repeats
-    # the device time of the kernels it launched
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
     out = {
         "card": card,
+        "config": args.config,
         "max_depth": args.max_depth,
+        "sym_canon": res.sym_canon,
+        "incremental_fp": eng.incremental_fp and
+        eng.fpr.supports_incremental(),
         "distinct_states": res.distinct_states,
         "generated_states": res.generated_states,
         "depth": res.depth,
@@ -88,14 +97,37 @@ def main(argv=None):
         "states_per_s": res.distinct_states / wall,
         "dedup_launches": launches,
         "dedup_event_ms": dedup_ms,
-        "profiled_wall_s": wall_prof,
-        "device_busy_ms": busy_ms,
-        # against the unprofiled wall: the kernels are the same, the
-        # profiler only slows the host
-        "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
-        "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
-                         "calls": n} for us, k, n in rows[:args.top]],
+        "hcap_initial": engine_kw.get("hcap"),
+        "hcap": eng.HCAP,
+        "hard_lanes": res.hard_lanes,
+        "hard_chunks": res.hard_chunks,
+        "hard_chunk_max": res.hard_chunk_max,
     }
+    if args.profile:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _res, wall_prof, _eng = run()
+        # device-side events only (the kernels): an operator's row
+        # repeats the device time of the kernels it launched
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+            if dev_us > 0:
+                rows.append((dev_us, e.key, e.count))
+        rows.sort(reverse=True)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        out.update({
+            "profiled_wall_s": wall_prof,
+            "device_busy_ms": busy_ms,
+            # against the unprofiled wall: the kernels are the same, the
+            # profiler only slows the host
+            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
+                             "calls": n} for us, k, n in rows[:args.top]],
+        })
     text = json.dumps(out, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
