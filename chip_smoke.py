@@ -15,12 +15,15 @@ Phases (any failure exits non-zero before the final line):
      kernel's claim rounds must equal the CPU model's
      (``probe_claim_insert_rounds``); (d) and (f) are timed;
   4. the main path: ``Engine(config #1).check(max_states=2_000_000)``
-     on the card, with incremental fingerprints (the default at 6
-     permutations), must give 2,540,315 distinct states, depth 19, no
-     violation, and the reference's level sizes; the kernel's launches
-     in this run are counted and timed, with their claim rounds; then
-     the same check timed with direct fingerprints
-     (``incremental_fp=False``), which must give the same answer;
+     on the card, in the engine's default expansion (the int8 guard
+     product and the delta group) with incremental fingerprints (the
+     default at 6 permutations), must give 2,540,315 distinct states,
+     depth 19, no violation, and the reference's level sizes; the
+     kernel's launches in this run are counted and timed, with their
+     claim rounds; then the same check timed with direct fingerprints
+     (``incremental_fp=False``), and once more with the plain expansion
+     (``guard_matmul=False, delta_matmul=False``), which must give the
+     same answer;
   5. BASELINE config #5 (5 servers, 120 permutations: "auto" resolves
      to the orbit-sort canonicalizer) with the reference's 600,000-state
      budget must give 937,554 distinct states, depth 20, no violation
@@ -29,7 +32,13 @@ Phases (any failure exits non-zero before the final line):
      fallback are counted;
   6. ``trace --target FirstCommit`` on a micro config must give the
      reference's 15-step witness, and the same micro check on the CPU
-     (plain twin) must agree with the card.
+     (plain twin) must agree with the card;
+  7. the expansion's two card-only paths, bit for bit, on the frontier
+     chunks of config #1 to depth 16: the guard product through
+     ``torch._int_mm`` against the term form, and the delta group's
+     candidates, counts and incremental fingerprints against the
+     per-family kernels on the card and against the CPU's for the same
+     chunk; the guard product and ``materialize`` are timed per chunk.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -346,6 +355,107 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
                 fill_ms=fill_ms, fill_rounds=fill_rounds)
 
 
+def expansion_phase(torch, Engine, cfg, card):
+    """Phase 7: the guard product (``torch._int_mm``) against the term
+    form on every frontier chunk of config #1 to depth 16, and the delta
+    group against the per-family kernels and the CPU on a full chunk.
+    Returns the timings."""
+    import numpy as np
+    from raft_tla_tpu_torch import convert as cvt
+    from raft_tla_tpu_torch.engine.expand import (Expander,
+                                                  compact_positions)
+    from raft_tla_tpu_torch.engine.fingerprint import RaftFingerprinter
+    dev = torch.device("cuda")
+    B = CONFIG1_ENGINE["chunk"]
+    eng = Engine(cfg, device="cuda", **CONFIG1_ENGINE)
+    eng.check(max_depth=16)
+    rows = {k: np.concatenate([b[k] for b in eng._states])
+            for k in eng._states[0]}
+    svT = {k: v.to(torch.int32) for k, v in
+           eng.ir.widen(cvt.rows_to_torch(rows, dev)).items()}
+    n = svT["ct"].shape[-1]
+    tx = Expander(cfg, dev)
+    n_chunks = (n + B - 1) // B
+    for c in range(n_chunks):
+        idx = torch.arange(c * B, c * B + B, device=dev) % n
+        sv = {k: v[..., idx] for k, v in svT.items()}
+        der = tx.kern.derived(sv)
+        got = tx.guards_T_matmul(sv, der)
+        check(torch.equal(got, tx.guards_T_terms(sv, der)),
+              f"guard product differs from the term form on chunk {c}")
+    # the last full chunk: the widest level's rows
+    sv = {k: v[..., n - B:] for k, v in svT.items()}
+    der = tx.kern.derived(sv)
+    F, A = tx._gW.shape
+    timing = {}
+
+    def events(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    Bp = (B + 31) // 32 * 32
+    x8 = torch.zeros((Bp, tx._W8.shape[0]), dtype=torch.int8, device=dev)
+    x8[:B, :F] = tx.kern.guard_features(sv, der).T
+    timing["int_mm_ms"] = events(lambda: torch._int_mm(x8, tx._W8))
+    timing["guard_product_ms"] = events(lambda: tx.guards_T_matmul(sv, der))
+    timing["guard_terms_ms"] = events(lambda: tx.guards_T_terms(sv, der))
+    timing["int_mm_shape"] = [Bp, int(tx._W8.shape[0]),
+                              int(tx._W8.shape[1])]
+    log(f"phase 7 guard product [{card}]: {n_chunks} chunks of config #1 "
+        f"to depth 16 ({n} states), _int_mm == term form; per chunk "
+        f"(B {B}, F {F}, A {A}; _int_mm [{Bp}x{tx._W8.shape[0]}] x "
+        f"[{tx._W8.shape[0]}x{tx._W8.shape[1]}]): _int_mm "
+        f"{timing['int_mm_ms']:.4f} ms, guards_T_matmul "
+        f"{timing['guard_product_ms']:.4f} ms, term form "
+        f"{timing['guard_terms_ms']:.4f} ms (CUDA events, mean of 20)")
+    okf = tx.guards_T(sv, der).reshape(-1)
+    FCAP = eng.FCAP
+    epos, n_e = compact_positions(okf, FCAP)
+    out = {}
+    for name, d, delta in (("card", dev, True), ("card kernels", dev, False),
+                           ("cpu", torch.device("cpu"), True)):
+        ex = Expander(cfg, d, delta_matmul=delta)
+        fpr = RaftFingerprinter(cfg)
+        s_d = {k: v.to(d) for k, v in sv.items()}
+        der_d = ex.kern.derived(s_d)
+        args = (s_d, der_d, okf.to(d), epos.to(d), FCAP, eng.FAM_CAPS)
+        tables = fpr.parent_tables(s_d)
+        cand, counts, keys = ex.materialize(*args,
+                                            delta_fp=(fpr, tables))
+        m = int(n_e)
+        out[name] = ({k: v[..., :m].cpu() for k, v in cand.items()},
+                     counts.cpu(), keys[:, :m].cpu())
+        if d.type == "cuda":
+            timing[f"materialize_{name.replace(' ', '_')}_ms"] = events(
+                lambda: ex.materialize(*args), reps=10)
+    ref = out["cpu"]
+    check(int(n_e) > B and int(ref[1].sum()) == int(n_e),
+          "phase 7 chunk has too few enabled lanes")
+    for name in ("card", "card kernels"):
+        cand, counts, keys = out[name]
+        check(torch.equal(counts, ref[1]), f"{name}: counts differ")
+        check(torch.equal(keys, ref[2]), f"{name}: fingerprints differ")
+        for k in cand:
+            check(torch.equal(cand[k], ref[0][k]),
+                  f"{name}: candidates differ in {k}")
+    log(f"phase 7 delta group [{card}]: a chunk of {B} rows, "
+        f"{int(n_e)} candidates (FCAP {FCAP}): the delta group on the "
+        f"card == the per-family kernels on the card == the CPU "
+        f"(candidates, counts, incremental fingerprints); materialize "
+        f"{timing['materialize_card_ms']:.3f} ms with the delta group, "
+        f"{timing['materialize_card_kernels_ms']:.3f} ms with the "
+        f"kernels (CUDA events, mean of 10)")
+    return timing
+
+
 def run_path(torch, fp, Engine, cfg, engine_kw, max_states):
     """Drive ``Engine(cfg).check`` on the card with the kernel's launch
     counter zeroed just before and read just after."""
@@ -415,6 +525,7 @@ def main():
               f"this script ({e})", file=sys.stderr)
         return 3
     here = os.path.dirname(os.path.abspath(__file__))
+    t_start = time.perf_counter()
 
     # phase 1
     card = card_line()
@@ -432,6 +543,8 @@ def main():
     c1 = run_path(torch, fp, Engine, cfg1, CONFIG1_ENGINE,
                   CONFIG1_MAX_STATES)
     check(c1["incremental"], "config #1 did not run incremental")
+    check(c1["eng"].guard_matmul and c1["eng"].expander.delta_active,
+          "config #1 did not run the default expansion")
     report("phase 4 config #1 (incremental fingerprints)", c1, card)
     check_answer("config #1", c1, CONFIG1_DISTINCT, CONFIG1_DEPTH,
                  CONFIG1_LEVEL_SIZES)
@@ -442,8 +555,16 @@ def main():
     report("phase 4 config #1 (direct fingerprints)", c1d, card)
     check_answer("config #1 direct", c1d, CONFIG1_DISTINCT, CONFIG1_DEPTH,
                  CONFIG1_LEVEL_SIZES)
+    c1p = run_path(torch, fp, Engine, cfg1,
+                   dict(CONFIG1_ENGINE, guard_matmul=False,
+                        delta_matmul=False), CONFIG1_MAX_STATES)
+    check(not c1p["eng"].expander.delta_active,
+          "config #1 plain expansion ran the delta group")
+    report("phase 4 config #1 (plain expansion, incremental)", c1p, card)
+    check_answer("config #1 plain expansion", c1p, CONFIG1_DISTINCT,
+                 CONFIG1_DEPTH, CONFIG1_LEVEL_SIZES)
     log(f"phase 4 config #1 [{card}]: wall incremental {c1['wall']:.2f} s, "
-        f"direct {c1d['wall']:.2f} s")
+        f"direct {c1d['wall']:.2f} s, plain expansion {c1p['wall']:.2f} s")
     # phase 5: config #5, the orbit-sort canonicalizer
     cfg5 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
                       bounds=Bounds.make(**CONFIG5_BOUNDS))
@@ -479,8 +600,12 @@ def main():
           f"FirstCommit witness {runs['cuda'][2:]}")
     log(f"phase 6 FirstCommit witness: {len(MICRO_TRACE) - 1} steps, "
         "card == CPU == reference")
+    # phase 7: the expansion's card-only paths
+    t7 = expansion_phase(torch, Engine, cfg1, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "probe_claim_insert", "route": "cuda",
@@ -500,7 +625,17 @@ def main():
         "config1_launches": c1["launches"],
         "config1_ms": c1["kernel_ms"],
         "config1_direct_launches": c1d["launches"],
-        "config1_direct_ms": c1d["kernel_ms"]}]}))
+        "config1_direct_ms": c1d["kernel_ms"],
+        "config1_plain_expansion_launches": c1p["launches"],
+        "config1_plain_expansion_ms": c1p["kernel_ms"]}],
+        "guard_product": {
+            "call": "torch._int_mm", "shape": t7["int_mm_shape"],
+            "int_mm_ms": t7["int_mm_ms"],
+            "guards_T_matmul_ms": t7["guard_product_ms"],
+            "guards_T_terms_ms": t7["guard_terms_ms"]},
+        "materialize_ms": {
+            "delta_group": t7["materialize_card_ms"],
+            "kernels": t7["materialize_card_kernels_ms"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

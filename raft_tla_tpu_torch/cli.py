@@ -1,17 +1,21 @@
 """Command-line front end: ``python -m raft_tla_tpu_torch check|trace``.
 
   check <cfg>  exhaustive BFS of the model; prints one JSON stats line
-               (and writes it to --stats-json), exits 1 on an
-               invariant violation.
+               (and writes it to --stats-json), then each violation
+               with its trace as the reference CLI prints it; exits 1
+               on an invariant violation.
   trace <cfg> --target NAME
-               BFS until the scenario property NAME is violated and
-               prints the witness trace (exit 0 when found, 1 if not).
+               BFS until the property NAME (a scenario property or a
+               safety invariant) is violated and prints the witness
+               trace (exit 0 when found, 1 if not, 2 for an unknown
+               name).
 
 The bounds flags override the cfg's in-spec bounds as the reference
 CLI's do; ``--device`` picks the device (default cuda; the run raises
-when CUDA is absent unless ``--device cpu`` is given); ``--sym-canon``
-picks the symmetry canonicalizer as the reference's does.  The stats
-keys are the reference CLI's names for the fields this port fills.
+when CUDA is absent unless ``--device cpu`` is given); ``--sym-canon``,
+``--guard-matmul``, ``--delta-matmul`` and ``--fam-cap-density`` pick
+the engine's forms as the reference's do.  The stats keys are the
+reference CLI's names for the fields this port fills.
 """
 
 from __future__ import annotations
@@ -79,20 +83,62 @@ def check_stats(res, fp_bits: int) -> dict:
     }
 
 
+# the reference CLI's default --max-violations (the port has no flag)
+MAX_VIOLATIONS = 5
+
+
 def _engine(cfg, args, store_states):
     from .engine.bfs import Engine
     return Engine(cfg, chunk=args.chunk, lcap=args.lcap, vcap=args.vcap,
                   ocap=args.ocap, store_states=store_states,
-                  sym_canon=args.sym_canon, device=args.device)
+                  sym_canon=args.sym_canon,
+                  guard_matmul=args.guard_matmul,
+                  delta_matmul=args.delta_matmul,
+                  fam_density=args.fam_density, device=args.device)
 
 
-def _print_trace(eng, v):
-    print(f"violation of {v.invariant} at state {v.state_id}:")
-    for step, (label, sv) in enumerate(eng.trace(v.state_id)):
-        print(f"  {step:3d} {label}")
+def _fam_density(args):
+    """Parse --fam-cap-density into args.fam_density; an error message
+    (for exit 2) or None."""
+    args.fam_density = None
+    if args.fam_cap_density:
+        from .engine.expand import parse_fam_density
+        try:
+            args.fam_density = parse_fam_density(args.fam_cap_density)
+        except ValueError as e:
+            return f"--fam-cap-density: {e}"
+    return None
+
+
+def _print_violation(idx, name, trace):
+    print(f"\nViolation {idx}: invariant {name}")
+    if trace:
+        for step, (label, sv) in enumerate(trace):
+            print(f"  {step:3d}  {label}")
+            print(f"       {sv}")
+
+
+def _check_target(name, ir) -> bool:
+    """A --target names a scenario property or a safety invariant of
+    the spec; else print what is known and refuse."""
+    if name in ir.known_invariants:
+        return True
+    others = sorted(set(ir.known_invariants) -
+                    set(ir.scenario_properties))
+    print(f"unknown scenario property {name!r} for spec "
+          f"{ir.name!r}; known scenario properties: "
+          f"{', '.join(ir.scenario_properties)}\n"
+          f"(safety invariants are accepted too: "
+          f"{', '.join(others)})",
+          file=sys.stderr)
+    return False
 
 
 def cmd_check(args) -> int:
+    err = _fam_density(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
     cfg = _apply_overrides(load_model(args.cfg), args)
     eng = _engine(cfg, args, store_states=True)
     res = eng.check(max_depth=args.max_depth, max_states=args.max_states,
@@ -103,16 +149,19 @@ def cmd_check(args) -> int:
     if args.stats_json:
         with open(args.stats_json, "w") as fh:
             json.dump(stats, fh, indent=1)
-    for v in res.violations[:1]:
-        _print_trace(eng, v)
-    return 1 if res.violations else 0
+    viol = res.violations[:MAX_VIOLATIONS]
+    for k, v in enumerate(viol):
+        _print_violation(k, v.invariant, eng.trace(v.state_id))
+    return 1 if viol else 0
 
 
 def cmd_trace(args) -> int:
-    from .ops.vpredicates import SCENARIO_PROPERTIES
-    if args.target not in SCENARIO_PROPERTIES:
-        print(f"unknown --target {args.target!r}; known: "
-              f"{', '.join(SCENARIO_PROPERTIES)}", file=sys.stderr)
+    from .spec import get_spec
+    if not _check_target(args.target, get_spec("raft")):
+        return 2
+    err = _fam_density(args)
+    if err:
+        print(err, file=sys.stderr)
         return 2
     cfg = _apply_overrides(load_model(args.cfg), args)
     cfg = cfg.with_(invariants=(args.target,))
@@ -120,12 +169,15 @@ def cmd_trace(args) -> int:
     res = eng.check(max_depth=args.max_depth, max_states=args.max_states,
                     stop_on_violation=True)
     if not res.violations:
-        print(f"no state violates {args.target} within the bounds "
+        print(f"no witness found for {args.target} within bounds "
               f"({res.distinct_states} states, depth {res.depth})")
         return 1
-    trace = [label for label, _sv in eng.trace(res.violations[0].state_id)]
-    print(json.dumps({"target": args.target, "length": len(trace) - 1,
-                      "trace": trace}))
+    v = res.violations[0]
+    print(f"witness for {args.target} at depth {res.depth} "
+          f"({res.distinct_states} states explored, "
+          f"{res.seconds:.1f}s):")
+    for step, (label, _sv) in enumerate(eng.trace(v.state_id)):
+        print(f"  {step:3d}  {label}")
     if args.stats_json:
         with open(args.stats_json, "w") as fh:
             json.dump(check_stats(res, 32 * eng.W), fh, indent=1)
@@ -162,6 +214,28 @@ def main(argv=None) -> int:
                              "every permutation; 'auto' (default) picks "
                              "sort past 6 permutations.  Fingerprint "
                              "values are mode-specific")
+        sp.add_argument("--guard-matmul",
+                        action=argparse.BooleanOptionalAction,
+                        default=True,
+                        help="evaluate the guard grid as one int8 "
+                             "product of the guard features with the "
+                             "packed guard matrix (default); "
+                             "--no-guard-matmul sums each lane's guard "
+                             "terms instead.  Same answer either way")
+        sp.add_argument("--delta-matmul",
+                        action=argparse.BooleanOptionalAction,
+                        default=True,
+                        help="apply the families with declared delta "
+                             "algebras as one scatter-add over the flat "
+                             "state view (default); --no-delta-matmul "
+                             "runs every family's kernel.  Same answer "
+                             "either way")
+        sp.add_argument("--fam-cap-density", default=None, metavar="SPEC",
+                        help="override per-family enabled-lane density "
+                             "caps as fam=k,fam2=k2 (e.g. "
+                             "Receive=8,Timeout=2): cap_f = chunk * "
+                             "min(lanes_f, k); unknown families and "
+                             "non-positive k are refused")
 
     pc = sub.add_parser("check", help="exhaustive model check")
     common(pc)

@@ -6,14 +6,19 @@ and constraint evaluation and the level buffer all live on the device;
 the host keeps the counters and reads back a few scalars per chunk.
 
 Per frontier chunk (``_chunk_step``): guard-first expansion over the
-[B, A] lane grid, successor materialization for the enabled lanes,
-the symmetry-canonical fingerprint (incremental from per-parent term
-tables where the fingerprinter supports it, else direct: minperm, or
-orbit-sort with the hard lanes' min over every permutation), claim-
-insert dedup into the visited table (``fingerprint.probe_claim_insert``
-— the CUDA kernel), then
-invariants and constraints on the fresh rows and their append to the
-level buffer.  ``_finalize`` commits the level (the level buffer
+[B, A] lane grid (the int8 guard product by default), compaction of
+the enabled lanes into the fixed-width FCAP candidate buffer with
+successor materialization (the delta group for the affine families,
+kernels for the rest), the symmetry-canonical fingerprint (incremental
+from per-parent term tables where the fingerprinter supports it, else
+direct: minperm, or orbit-sort with the hard lanes' min over every
+permutation), claim-insert dedup into the visited table
+(``fingerprint.probe_claim_insert`` — the CUDA kernel) gated by the
+chunk's own overflow flag, then invariants and constraints on the
+fresh rows and their append to the level buffer.  Nothing is read back
+before the dedup launch; one read after it brings the enabled count,
+the overflow flags and the probe budget, and the fresh rows' indices
+are the second.  ``_finalize`` commits the level (the level buffer
 becomes the frontier) or, when a buffer overflowed, rolls the visited
 table back through the level's insert journal and leaves the frontier
 intact, so the host can grow the capacity and replay the level.
@@ -48,7 +53,7 @@ from ..spec import spec_of
 from ..utils import (fmix32_int, fp_key, HOME_SALT, resolve_device,
                      take_arrays)
 from . import driver
-from .expand import Expander
+from .expand import Expander, compact_positions
 from .fingerprint import probe_claim_insert, resolve_sym_canon
 
 EMPTY = -1          # the all-ones u32 key, as int32: an empty table slot
@@ -129,6 +134,9 @@ class _Level:
         self.hcovf = False      # more hard lanes in a chunk than HCAP
         self.hard = [0, 0, 0]   # hard lanes, chunks with any, chunk max
         self.famx = [0] * n_fams
+        # the most enabled lanes per family in any chunk, on the device
+        self.famx_d = torch.zeros(n_fams, dtype=torch.int32,
+                                  device=self.fmask.device)
         self.ofx = 0            # max fresh rows in any chunk
         self.base = 0           # chunk cursor within the frontier
 
@@ -151,6 +159,11 @@ class Engine:
     incremental_fp — incremental per-action fingerprints where the
                fingerprinter supports them (minperm, at most 24
                permutations); bit-identical to the direct path.
+    guard_matmul, delta_matmul, delta_chunk_skip — the expansion's
+               forms (``expand.Expander``); every setting gives the
+               same answer.
+    fam_density — per-family density overrides for the initial
+               per-family caps (``expand.validate_fam_density``).
     sym_canon — "auto" (sort past 6 permutations), "sort" or "minperm"
                (``fingerprint.resolve_sym_canon``).
     hcap     — sort mode: hard lanes per chunk that the fallback's
@@ -167,6 +180,9 @@ class Engine:
                  fcap: Optional[int] = None, ocap: Optional[int] = None,
                  incremental_fp: bool = True, sym_canon: str = "auto",
                  hcap: Optional[int] = None,
+                 guard_matmul: bool = True, delta_matmul: bool = True,
+                 delta_chunk_skip: Optional[bool] = None,
+                 fam_density: Optional[Dict[str, int]] = None,
                  device: Optional[str] = None):
         if cfg.prefix_pins or cfg.action_constraints:
             raise NotImplementedError(
@@ -182,7 +198,12 @@ class Engine:
         self._lanes: List[np.ndarray] = []
         self.lay = self.ir.make_layout(cfg)
         self.kern = self.ir.make_kernels(self.lay)
-        self.expander = Expander(cfg, self.device)
+        self.guard_matmul = bool(guard_matmul)
+        self.delta_matmul = bool(delta_matmul)
+        self.expander = Expander(cfg, self.device,
+                                 guard_matmul=self.guard_matmul,
+                                 delta_matmul=self.delta_matmul,
+                                 delta_chunk_skip=delta_chunk_skip)
         self.fpr = self.ir.make_fingerprinter(
             cfg, sym_canon=resolve_sym_canon(cfg, sym_canon))
         self.incremental_fp = incremental_fp
@@ -200,7 +221,10 @@ class Engine:
         self.LCAP = self._round_cap(
             max(lcap, 4 * self.chunk, 4 * self.FCAP))
         self.VCAP = 1 << _ceil_log2(int(vcap))
-        self.FAM_CAPS = self.expander.default_fam_caps(self.chunk)
+        self.fam_density = dict(fam_density or {})
+        self.FAM_CAPS = self.expander.default_fam_caps(self.chunk,
+                                                       self.fam_density)
+        self._caps_dev = (None, None)
         self.HCAP = int(hcap) if hcap else self.chunk
 
     def _round_cap(self, n: int) -> int:
@@ -271,47 +295,67 @@ class Engine:
         visited table, evaluate invariants/constraints on the fresh
         rows and append them to the level buffer."""
         B, A = self.chunk, self.A
+        FCAP = self.FCAP
         base = st.base
         st.base += B
-        nb = min(B, st.n_front - base)
-        if nb <= 0:
+        if base >= st.n_front:
             return
-        sv = self.ir.widen({k: v[..., base:base + nb]
+        # a fixed B-row window (LCAP is a multiple of the chunk); rows
+        # past the frontier are masked out of the lane grid
+        sv = self.ir.widen({k: v[..., base:base + B]
                             for k, v in st.front.items()})
-        valid = st.fmask[base:base + nb]
+        valid = st.fmask[base:base + B] & (
+            torch.arange(B, device=self.device) < st.n_front - base)
         derb = self.kern.derived(sv)
-        ok = self.expander.guards_T(sv, derb) & valid[:, None]
-        # enabled lanes in ascending (row, lane) order = the oracle's
-        # successor enumeration order
-        lanes = ok.reshape(-1).nonzero().squeeze(1)
-        n_e = lanes.shape[0]
-        counts = self.expander.family_counts(lanes).tolist()
-        st.famx = [max(a, b) for a, b in zip(st.famx, counts)]
-        st.fovf |= n_e > self.FCAP or any(
-            c > cap for c, cap in zip(counts, self.FAM_CAPS))
-        # any overflow means this level replays: stop inserting so the
-        # journal stays the exact record of this level's table writes
-        if st.bad or n_e == 0:
+        okf = (self.expander.guards_T(sv, derb) &
+               valid[:, None]).reshape(-1)
+        if st.bad:
+            # the level replays: insert nothing, so the journal stays
+            # the exact record of this level's table writes, but keep
+            # the per-family maxima the replay sizes its caps from
+            st.famx_d = torch.maximum(st.famx_d,
+                                      self.expander.family_counts(okf))
             return
-        st.n_gen += n_e
+        # enabled lanes in ascending (row, lane) order = the oracle's
+        # successor enumeration order, at fixed positions in FCAP
+        epos, n_e = compact_positions(okf, FCAP)
+        elive = torch.arange(FCAP, device=self.device) < n_e
         n_hard = None
         if self.incremental_fp and self.fpr.supports_incremental():
             tables = self.fpr.parent_tables(sv)
-            cand, keys = self.expander.materialize(
-                sv, derb, lanes, counts, delta_fp=(self.fpr, tables))
+            cand, counts, keys = self.expander.materialize(
+                sv, derb, okf, epos, FCAP, self.FAM_CAPS,
+                delta_fp=(self.fpr, tables))
         else:
-            cand = self.expander.materialize(sv, derb, lanes, counts)
-            keys, n_hard = self.fpr.fingerprint_chunk_T(cand, self.HCAP)
-        live = torch.ones(n_e, dtype=torch.bool, device=self.device)
-        fresh, pos, hv = probe_claim_insert(st.vis, keys, live)
+            cand, counts = self.expander.materialize(
+                sv, derb, okf, epos, FCAP, self.FAM_CAPS)
+            # columns past n_e are garbage: they must not count as hard
+            # lanes, or they would fill the fallback's buffer
+            keys, n_hard = self.fpr.fingerprint_chunk_T(cand, self.HCAP,
+                                                        live=elive)
+        st.famx_d = torch.maximum(st.famx_d, counts)
+        # a chunk whose enabled lanes overflow FCAP or a family cap has
+        # an incomplete buffer: it inserts nothing and the level replays
+        fovf = (n_e > FCAP) | (counts > self._caps_t()).any()
+        fresh, pos, hv = probe_claim_insert(st.vis, keys, elive & ~fovf)
+        # the step's one read: probe budget, hard lanes, enabled count,
+        # overflow flag and the per-family maxima
+        none = torch.full((1,), -1, dtype=torch.int64, device=self.device)
+        got = torch.cat([hv.reshape(1).to(torch.int64),
+                         none if n_hard is None
+                         else n_hard.reshape(1).to(torch.int64),
+                         n_e.reshape(1).to(torch.int64),
+                         fovf.reshape(1).to(torch.int64),
+                         st.famx_d.to(torch.int64)]).tolist()
+        hv, nh, n_e, fovf = got[:4]
+        st.famx = got[4:]
+        if fovf:
+            st.fovf = True
+            return
+        st.n_gen += n_e
+        st.hovf |= bool(hv)
         hcovf_now = False
-        if n_hard is None:
-            st.hovf |= bool(hv)
-        else:
-            # one read for the probe budget and the hard-lane count
-            hv, nh = torch.stack([hv.to(torch.int64),
-                                  n_hard.to(torch.int64)]).tolist()
-            st.hovf |= bool(hv)
+        if nh >= 0:
             st.hard = [st.hard[0] + nh, st.hard[1] + (nh > 0),
                        max(st.hard[2], nh)]
             hcovf_now = nh > self.HCAP
@@ -328,13 +372,16 @@ class Engine:
             st.oovf |= oovf_now
             st.hcovf |= hcovf_now
             return
+        if n_fresh == 0:
+            return
         rows = {k: v[..., fidx] for k, v in cand.items()}
         inv, con = self._phase2_T(rows)
         rows_n = self.ir.narrow(self.lay, rows)
         s, e = st.n_lvl, st.n_lvl + n_fresh
         for k, v in st.lvl.items():
             v[..., s:e] = rows_n[k]
-        lane = lanes[fidx]
+        # buffer slot -> flat lane: the fresh slots' enabled lanes
+        lane = self._slot_lanes(epos, FCAP)[fidx]
         st.lpar[s:e] = (st.pg_off + base + lane // A).to(torch.int32)
         st.llane[s:e] = (lane % A).to(torch.int32)
         st.jslot[s:e] = pos[fidx]
@@ -342,6 +389,24 @@ class Engine:
         st.lcon[s:e] = con
         st.n_lvl = e
         st.ofx = max(st.ofx, n_fresh)
+
+    def _caps_t(self) -> torch.Tensor:
+        """FAM_CAPS as a device tensor (copied once per value: the caps
+        change only between levels)."""
+        if self._caps_dev[0] != self.FAM_CAPS:
+            self._caps_dev = (self.FAM_CAPS, torch.tensor(
+                self.FAM_CAPS, dtype=torch.int32, device=self.device))
+        return self._caps_dev[1]
+
+    @staticmethod
+    def _slot_lanes(epos: torch.Tensor, fcap: int) -> torch.Tensor:
+        """Buffer slot -> flat lane id [fcap] (slots past the enabled
+        count hold the grid size)."""
+        N = epos.shape[0]
+        out = torch.full((fcap + 1,), N, dtype=torch.int64,
+                         device=epos.device)
+        return out.scatter_(0, epos.long(), torch.arange(
+            N, device=epos.device))[:fcap]
 
     # ------------------------------------------------------------------
     # per-level finalize: commit, or roll the table back via the journal
@@ -359,6 +424,8 @@ class Engine:
         faults = int((st.lvl["ctr"][C_OVERFLOW, :n_lvl] > 0).sum())
         n_expand = int(con.sum())
         if st.bad:
+            # chunks after the overflow only updated the device maxima
+            st.famx = st.famx_d.tolist()
             # clear exactly the journaled inserts; a cleared cohort
             # postdates every surviving key, so it cannot sit on a
             # surviving key's probe path

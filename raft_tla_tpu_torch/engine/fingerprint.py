@@ -476,12 +476,17 @@ class RaftFingerprinter:
             hard = hard | (eq & ~(ht == h0).all(0))
         return h0, hard, tie
 
-    def _core_sort(self, prep: Dict, svT: Dict, hcap: Optional[int]):
+    def _core_sort(self, prep: Dict, svT: Dict, hcap: Optional[int],
+                   live: Optional[torch.Tensor] = None):
         """Sort-mode fingerprints [T, N] and the hard-lane count (a 0-d
         device tensor).  hcap None: every hard lane takes the fallback
         (found with a host sync); else the first hcap hard lanes do,
-        with no sync, and the caller must hold the count to hcap."""
+        with no sync, and the caller must hold the count to hcap.  A
+        lane outside ``live`` [N] is never hard (its value is not
+        canonical then, and nothing may read it)."""
         h0, hard, _tie = self._sort_hashes(prep, svT)
+        if live is not None:
+            hard = hard & live
         N = h0.shape[1]
         n_hard = hard.sum()
         idx = hard.nonzero().squeeze(1) if hcap is None \
@@ -496,22 +501,25 @@ class RaftFingerprinter:
         c = self._consts(h0.device)
         return self._seal(fmix32(fp ^ c["sort_salt"][:, None])), n_hard
 
-    def _core(self, svT: Dict, hcap: Optional[int] = None):
+    def _core(self, svT: Dict, hcap: Optional[int] = None,
+              live: Optional[torch.Tensor] = None):
         prep = self._prep(svT)
         if self.sym_canon == "sort" and len(self.sigmas) > 1:
-            return self._core_sort(prep, svT, hcap)
+            return self._core_sort(prep, svT, hcap, live)
         return self._seal(self._min_over_perms(prep)), None
 
     def fingerprint_batch_T(self, svT: Dict) -> torch.Tensor:
         """Batch-last [..., N] rows -> int32-carried u32 [T, N]."""
         return self._core(svT)[0]
 
-    def fingerprint_chunk_T(self, svT: Dict, hcap: int):
+    def fingerprint_chunk_T(self, svT: Dict, hcap: int,
+                            live: Optional[torch.Tensor] = None):
         """The engine's form of ``fingerprint_batch_T``: no host sync.
-        Returns (fp [T, N], n_hard): in sort mode n_hard is the hard
-        lanes' count as a 0-d device tensor, and fp is exact only when
+        Returns (fp [T, N], n_hard): in sort mode n_hard is the count of
+        the hard lanes among ``live`` [N] (all lanes when None) as a 0-d
+        device tensor, and fp is exact on the live lanes only when
         n_hard <= hcap; in minperm mode n_hard is None."""
-        return self._core(svT, hcap)
+        return self._core(svT, hcap, live)
 
     def fingerprint_batch(self, svb: Dict) -> torch.Tensor:
         """Batch-first [N, ...] rows -> [N, T]."""

@@ -758,6 +758,75 @@ class RaftKernels:
             leader, cand, folc, blq, cfgb.reshape(-1, N),
             nv.reshape(-1, N), ut, cocd, recv, cnt1]).to(I32)
 
+    # ------------------------------------------------------------------
+    # Delta features: the data-dependent sources of the delta group
+    # (engine/expand.py).  Every affine family's state delta is a
+    # weighted sum of these per-state int32 values, the constant 1 and
+    # the flat state view itself:
+    #
+    # - BecomeLeader's three feat max-updates, pre-differenced
+    #   (max(old, x) - old), so an add lands the max exactly;
+    # - Timeout's term-capacity clamp (ct < cap: the room is the
+    #   increment);
+    # - ClientRequest's append: the one-hot of the append position
+    #   (llen), the same one-hot scaled by the term and by the old log
+    #   word (so set == add with the old value cancelled), and the llen
+    #   room;
+    # - UpdateTerm's message-indexed sets: per bag slot, the dst one-hot
+    #   scaled by (new - old) for each of the three per-server writes;
+    # - Restart's min-gap update, pre-differenced (min(old, gap) - old).
+    #
+    # Layout is ``delta_feature_offsets``; the two move together.
+    # ------------------------------------------------------------------
+
+    def delta_features(self, sv: State, der: State) -> torch.Tensor:
+        """Per-state delta-feature vector, int32 [n_delta_features, N],
+        in the ``delta_feature_offsets`` layout."""
+        S, Lcap = self.S, self.Lcap
+        hs = self.lay.header_shifts
+        feat = sv["feat"]                                 # [NF, N]
+        N = feat.shape[-1]
+        ii = ar(S, feat)[:, None]                         # [S, 1]
+        # BecomeLeader feat deltas, per candidate server i
+        leaders2 = der["leaders"][None] | (1 << ii)       # [S, N]
+        bl2 = (popcount(leaders2, S) >= 2).to(I32)
+        d_bl2 = torch.maximum(feat[F_BL2_SEEN], bl2) - feat[F_BL2_SEEN]
+        njbl = (feat[F_ADDED_SET][None] >> ii) & 1
+        d_njbl = torch.maximum(feat[F_NJBL], njbl) - feat[F_NJBL]
+        d_lcdcc = (torch.maximum(feat[F_LCDCC], feat[F_OPEN_ADD]) -
+                   feat[F_LCDCC])[None]
+        # Timeout's clamped term bump: room == the exact increment
+        ctroom = (sv["ct"] < self.term_cap).to(I32)
+        # ClientRequest append: llen room + the append-position one-hot
+        crroom = (sv["llen"] < Lcap).to(I32)
+        croh = (sv["llen"][:, None] ==
+                ar(Lcap, feat)[None, :, None]).to(I32)    # [S, Lcap, N]
+        crohct = croh * sv["ct"][:, None]
+        crohold = croh * sv["log"]
+        # UpdateTerm's per-slot writes, dst-one-hot scaled and
+        # pre-differenced (new - old)
+        w0 = sv["bag"][:, 0]                              # [K, N]
+        oh = (get_field_t(w0, hs["mdst"])[:, None] ==
+              ii[None]).to(I32)                           # [K, S, N]
+        utdct = oh * (get_field_t(w0, hs["mterm"])[:, None] - sv["ct"])
+        utdst = oh * (FOLLOWER - sv["st"])
+        utdvf = oh * (NIL - sv["vf"])
+        # Restart's min-gap update, pre-differenced: the gap as
+        # restart() computes it
+        pos = sv["ctr"][C_GLOBLEN] + 1
+        last = feat[F_LAST_RESTART_POS]
+        gap = torch.where(last > 0, pos - last, NO_GAP)
+        rgap = (torch.minimum(feat[F_MIN_RESTART_GAP], gap) -
+                feat[F_MIN_RESTART_GAP])[None]
+        return torch.cat([
+            d_bl2, d_njbl, d_lcdcc, ctroom, crroom,
+            croh.reshape(-1, N), crohct.reshape(-1, N),
+            crohold.reshape(-1, N), utdct.reshape(-1, N),
+            utdst.reshape(-1, N), utdvf.reshape(-1, N), rgap]).to(I32)
+
+    def delta_feature_offsets(self) -> Dict[str, int]:
+        return delta_feature_offsets(self.lay)
+
 
 def guard_feature_offsets(lay: Layout) -> Dict[str, int]:
     """Flat layout of ``RaftKernels.guard_features``: per-server role
@@ -772,4 +841,24 @@ def guard_feature_offsets(lay: Layout) -> Dict[str, int]:
     off.update(ut=base, cocd=base + K, recv=base + 2 * K,
                cnt1=base + 3 * K)
     off["total"] = base + 4 * K
+    return off
+
+
+def delta_feature_offsets(lay: Layout) -> Dict[str, int]:
+    """Flat layout of ``RaftKernels.delta_features``: the BecomeLeader
+    feat-delta blocks (bl2 / njbl per server, the scalar lcdcc), the
+    Timeout term-room block, the ClientRequest append blocks (llen
+    room, and the three [S, Lcap] one-hot grids: position, position ×
+    term, position × old log word), the three UpdateTerm [K, S]
+    dst-one-hot set-difference grids (ct / st / vf, row-major), and
+    the scalar Restart min-gap difference."""
+    S, Lcap, K = lay.S, lay.Lcap, lay.K
+    off = dict(bl2=0, njbl=S, lcdcc=2 * S, ctroom=2 * S + 1,
+               crroom=3 * S + 1, croh=4 * S + 1,
+               crohct=4 * S + 1 + S * Lcap,
+               crohold=4 * S + 1 + 2 * S * Lcap)
+    base = 4 * S + 1 + 3 * S * Lcap
+    off.update(utdct=base, utdst=base + K * S,
+               utdvf=base + 2 * K * S, rgap=base + 3 * K * S)
+    off["total"] = base + 3 * K * S + 1
     return off

@@ -2,9 +2,10 @@
 
 The engine never executes TLA+; it consumes a compiled operator
 surface: an Init state, a packed layout and its codec, a registry of
-action families (each with its parameter grid, its successor kernel
-and its guard algebra), per-family density caps, the device
-predicates, and the symmetry-canonical fingerprinter.  ``SpecIR``
+action families (each with its parameter grid, its successor kernel,
+its guard algebra and, where the action is affine, its delta algebra),
+per-family density caps, the device predicates with the names they
+answer to, and the symmetry-canonical fingerprinter.  ``SpecIR``
 bundles exactly that, as the reference package's ``spec`` module does;
 this port carries the raft frontend only.
 
@@ -17,10 +18,42 @@ engine's harvest reads only these two.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Mapping, Tuple
+from typing import Callable, Mapping, Optional, Tuple
+
+import numpy as np
 
 NCTR = 8
 C_NLEADERS, C_NREQ, C_NTRIED, C_NMC, C_GLOBLEN, C_OVERFLOW = range(6)
+
+
+@dataclass
+class Family:
+    """One action family: its successor kernel over compacted rows,
+    its static parameter grid, a label maker, its guard algebra and
+    optionally its delta algebra.
+
+    ``fn(sv, der, *params)`` takes batch-last rows [..., N] and one
+    int32 [N] tensor per parameter, and returns the successor rows.
+
+    ``guard(offsets, lay, *lane_params) -> ([(feature, weight)],
+    threshold)``: lane a is enabled exactly when the weighted sum of
+    the kernels' guard features equals its threshold.
+
+    ``delta(offsets, lay, *lane_params) -> [(slot, source, weight)]``:
+    the successor is ``x'[slot] = x[slot] + Σ weight · psi[source]``
+    over the flat int32 state view x, with psi = [1; x; the kernels'
+    delta features] (``engine/expand.py``, the delta group).  Only
+    affine families declare one; the others keep their kernel."""
+    name: str
+    fn: Callable
+    params: Tuple[np.ndarray, ...]
+    labeler: Callable
+    guard: Optional[Callable] = None
+    delta: Optional[Callable] = None
+
+    @property
+    def n_lanes(self):
+        return len(self.params[0]) if self.params else 1
 
 
 @dataclass(frozen=True)
@@ -45,6 +78,11 @@ class SpecIR:
     # (fpr, svT, prep) -> sig [S, N]: the permutation-equivariant
     # per-server signature the orbit-sort canonicalizer argsorts
     server_signature: Callable = None
+    # the negated reachability targets of the cfg's "Test cases" (the
+    # CLI's trace targets), and every invariant name the predicates
+    # answer to (safety invariants and scenario properties)
+    scenario_properties: Tuple[str, ...] = ()
+    known_invariants: frozenset = frozenset()
 
     @property
     def all_keys(self) -> Tuple[str, ...]:
@@ -55,9 +93,13 @@ _RAFT = None
 
 
 def spec_of(cfg) -> SpecIR:
-    """The IR handle for a model config.  Only raft is ported."""
+    """The IR handle for a model config."""
+    return get_spec(getattr(cfg, "spec", "raft"))
+
+
+def get_spec(name: str) -> SpecIR:
+    """The IR handle of a spec by name.  Only raft is ported."""
     global _RAFT
-    name = getattr(cfg, "spec", "raft")
     if name != "raft":
         raise ValueError(
             f"spec {name!r} is not ported to raft_tla_tpu_torch yet; "

@@ -158,3 +158,85 @@ def test_sort_fingerprints_on_the_card_equal_the_cpu(cuda):
     fixed, n_hard = fpr.fingerprint_chunk_T(
         {k: v.to(cuda) for k, v in svT.items()}, 16)
     assert int(n_hard) >= 2 and torch.equal(fixed.cpu(), want)
+
+
+def _frontier_rows(cfg, depth, chunk=64):
+    """Reachable states of ``cfg`` (the port's engine on the CPU, the
+    states of the levels up to ``depth``) as batch-last int32 rows."""
+    eng = Engine(cfg, chunk=chunk, device="cpu")
+    eng.check(max_depth=depth)
+    rows = {k: np.concatenate([b[k] for b in eng._states])
+            for k in eng._states[0]}
+    return eng, {k: v.to(torch.int32) for k, v in
+                 eng.ir.widen(cvt.rows_to_torch(rows)).items()}
+
+
+def _micro_dynamic():
+    from raft_tla_tpu_torch.config import NEXT_DYNAMIC
+    return ModelConfig(n_servers=3, init_servers=(0, 1), values=(1,),
+                       next_family=NEXT_DYNAMIC, symmetry=True,
+                       max_inflight_override=4,
+                       bounds=Bounds.make(max_log_length=2, max_timeouts=1,
+                                          max_client_requests=1))
+
+
+@pytest.mark.parametrize("rows", [16, 17, 40, 100, 1024])
+def test_guard_product_on_the_card_equals_the_term_form(cuda, rows):
+    """``torch._int_mm`` (int8, F and A padded to multiples of 8, B
+    padded past 16 rows) gives the term form's grid bit for bit, at
+    chunk widths that need each padding."""
+    from raft_tla_tpu_torch.engine.expand import Expander
+    eng, svT = _frontier_rows(_micro_dynamic(), 9)
+    n = svT["ct"].shape[-1]
+    idx = torch.arange(rows) % n
+    svT = {k: v[..., idx] for k, v in svT.items()}
+    tx = Expander(eng.cfg, cuda)
+    sv_c = {k: v.to(cuda) for k, v in svT.items()}
+    der_c = tx.kern.derived(sv_c)
+    got = tx.guards_T_matmul(sv_c, der_c)
+    assert got.shape == (rows, tx.n_lanes)
+    assert torch.equal(got, tx.guards_T_terms(sv_c, der_c))
+    tcpu = Expander(eng.cfg, torch.device("cpu"))
+    want = tcpu.guards_T_terms(svT, tcpu.kern.derived(svT))
+    assert torch.equal(got.cpu(), want) and want.any()
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_delta_group_on_the_card(cuda, skip):
+    """The delta group's candidates on the card (``index_add_`` with
+    atomic adds) equal the per-family kernels' on the card and the
+    CPU's output for the same chunk; so do the incremental
+    fingerprints."""
+    from raft_tla_tpu_torch.engine.expand import (Expander,
+                                                  compact_positions)
+    from raft_tla_tpu_torch.engine.fingerprint import RaftFingerprinter
+    eng, svT = _frontier_rows(_micro_dynamic(), 9)
+    B = 256
+    svT = {k: v[..., torch.arange(B) % v.shape[-1]] for k, v in svT.items()}
+    out = {}
+    for dev, delta in ((cuda, True), (cuda, False), (torch.device("cpu"),
+                                                     True)):
+        tx = Expander(eng.cfg, dev, delta_matmul=delta,
+                      delta_chunk_skip=skip)
+        fpr = RaftFingerprinter(eng.cfg)
+        sv = {k: v.to(dev) for k, v in svT.items()}
+        der = tx.kern.derived(sv)
+        okf = tx.guards_T(sv, der).reshape(-1)
+        fcap = B * 16
+        epos, n_e = compact_positions(okf, fcap)
+        caps = tx.default_fam_caps(B)
+        cand, counts, fp = tx.materialize(
+            sv, der, okf, epos, fcap, caps,
+            delta_fp=(fpr, fpr.parent_tables(sv)))
+        n = int(n_e)
+        out[(dev.type, delta)] = (
+            {k: v[..., :n].cpu() for k, v in cand.items()},
+            counts.cpu(), fp[:, :n].cpu())
+    ref = out[("cpu", True)]
+    assert int(ref[1].sum()) > B
+    for key in (("cuda", True), ("cuda", False)):
+        cand, counts, fp = out[key]
+        assert torch.equal(counts, ref[1]), key
+        assert torch.equal(fp, ref[2]), key
+        for k in cand:
+            assert torch.equal(cand[k], ref[0][k]), (key, k)

@@ -205,6 +205,8 @@ def test_cli_check_and_trace(tmp_path, capsys):
         (ref.distinct_states, ref.depth, 0)
     assert main(["trace", str(cfg), "--target", "FirstCommit"] +
                 flags) == 0
-    tr = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert tr["trace"][0] == "Init" and \
-        tr["trace"][-1] == "AdvanceCommitIndex(0)"
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("witness for FirstCommit at depth 15 ")
+    steps = [ln.split()[-1] for ln in out[1:]]
+    assert steps[0] == "Init" and steps[-1] == "AdvanceCommitIndex(0)"
+    assert len(steps) == 16

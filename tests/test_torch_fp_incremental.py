@@ -25,7 +25,7 @@ from raft_tla_tpu.ops.layout import Layout as JLayout
 from raft_tla_tpu_torch import convert as cvt
 from raft_tla_tpu_torch.config import (Bounds, ModelConfig, NEXT_ASYNC,
                                        NEXT_DYNAMIC, NEXT_FULL)
-from raft_tla_tpu_torch.engine.expand import Expander
+from raft_tla_tpu_torch.engine.expand import Expander, compact_positions
 from raft_tla_tpu_torch.engine.fingerprint import RaftFingerprinter
 
 from conftest import cached_explore
@@ -175,11 +175,15 @@ def test_family_delta_matches_direct_and_jax(case):
 def test_materialize_hook_gives_the_direct_fingerprints(case):
     r = _run(case)
     tx, fpr = r["tx"], r["fpr"]
-    counts = tx.family_counts(r["lanes"]).tolist()
-    cand, fp = tx.materialize(r["svT"], r["der"], r["lanes"], counts,
-                              delta_fp=(fpr, r["tables"]))
+    B = r["svT"]["ct"].shape[-1]
+    okf = torch.zeros(B * tx.n_lanes, dtype=torch.bool)
+    okf[r["lanes"]] = True
+    epos, n_e = compact_positions(okf, int(okf.sum()))
+    args = (r["svT"], r["der"], okf, epos, int(n_e),
+            tuple(B * f.n_lanes for f in tx.families))
+    cand, _counts, fp = tx.materialize(*args, delta_fp=(fpr, r["tables"]))
     assert torch.equal(fp, fpr.fingerprint_batch_T(cand))
-    want = tx.materialize(r["svT"], r["der"], r["lanes"], counts)
+    want, _counts = tx.materialize(*args)
     for k in want:
         assert torch.equal(cand[k], want[k]), k
 

@@ -19,7 +19,7 @@ from raft_tla_tpu.ops.layout import Layout as JLayout
 from raft_tla_tpu_torch import convert as cvt
 from raft_tla_tpu_torch.config import Bounds, ModelConfig, NEXT_DYNAMIC, \
     NEXT_FULL
-from raft_tla_tpu_torch.engine.expand import Expander
+from raft_tla_tpu_torch.engine.expand import Expander, compact_positions
 from raft_tla_tpu_torch.engine.fingerprint import RaftFingerprinter
 from raft_tla_tpu_torch.ops.layout import Layout
 from raft_tla_tpu_torch.ops.vpredicates import (CONSTRAINTS, INVARIANTS,
@@ -94,9 +94,13 @@ def test_guards_and_successors_match_jax(case):
     der = tx.kern.derived(svT)
     ok_t = tx.guards_T(svT, der).numpy()
     np.testing.assert_array_equal(ok_t, ok_j)
-    lanes = torch.from_numpy(ok_t.reshape(-1).nonzero()[0])
-    counts = tx.family_counts(lanes).tolist()
-    cand_t = cvt.rows_to_numpy(tx.materialize(svT, der, lanes, counts))
+    # every enabled lane into a buffer of exactly n_e, no cap binding
+    okf = torch.from_numpy(ok_t.reshape(-1))
+    epos, n_e = compact_positions(okf, int(okf.sum()))
+    caps = tuple(ok_t.shape[0] * f.n_lanes for f in tx.families)
+    cand, counts = tx.materialize(svT, der, okf, epos, int(n_e), caps)
+    cand_t = cvt.rows_to_numpy(cand)
+    counts = counts.tolist()
     b, a = np.nonzero(ok_j)
     for k in cand_t:
         want = np.asarray(cand_j[k])[b, a]

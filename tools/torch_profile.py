@@ -2,21 +2,25 @@
 
     python tools/torch_profile.py [--config 1|5] [--max-depth 17]
                                   [--incremental-fp 0|1] [--hcap N]
+                                  [--no-guard-matmul] [--no-delta-matmul]
                                   [--no-profile] [--out FILE]
 
 Runs BASELINE config #1 or #5 (the chip_smoke.py configurations and
 capacities) through ``raft_tla_tpu_torch`` on the CUDA device, in the
-engine's default fingerprint mode unless ``--incremental-fp 0`` turns
-the incremental path off: once plain, for the wall time, and once
-under ``torch.profiler`` (CPU + CUDA activities), for the device time
-per kernel name (``--no-profile`` skips this run: the profiler's
-summary takes minutes past ~10^5 launches).  Prints one JSON object:
-the card, the run's counts, wall seconds, the dedup kernel's launches
-and event time, the hard lanes of the orbit-sort fallback, the
-device-busy total, the idle share of the plain run's wall, and the top
-kernels by device time.  A depth cut keeps the profiler's trace small;
-the runs explore the same levels (a first, unmeasured run warms the
-allocator).
+engine's default fingerprint mode and expansion unless
+``--incremental-fp 0`` turns the incremental path off and
+``--no-guard-matmul`` / ``--no-delta-matmul`` the guard product / the
+delta group: once plain, for the wall time, and once under
+``torch.profiler`` (CPU + CUDA activities), for the device time per
+kernel name and the device launches per chunk step (``--no-profile``
+skips this run: the profiler's summary takes minutes past ~10^5
+launches).  Prints one JSON object: the card, the run's counts, wall
+seconds, the dedup kernel's launches (one per chunk step) and event
+time, the hard lanes of the orbit-sort fallback, the device-busy
+total, the idle share of the plain run's wall, the device launches per
+chunk step, and the top kernels by device time.  A depth cut keeps the
+profiler's trace small; the runs explore the same levels (a first,
+unmeasured run warms the allocator).
 """
 
 import argparse
@@ -37,6 +41,10 @@ def main(argv=None):
                     default=1)
     ap.add_argument("--hcap", type=int, default=None,
                     help="hard-lane buffer (default: the config's)")
+    ap.add_argument("--guard-matmul", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--delta-matmul", action=argparse.BooleanOptionalAction,
+                    default=True)
     ap.add_argument("--profile", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--top", type=int, default=15)
@@ -71,7 +79,9 @@ def main(argv=None):
 
     def run():
         eng = Engine(cfg, store_states=False, device="cuda",
-                     incremental_fp=bool(args.incremental_fp), **engine_kw)
+                     incremental_fp=bool(args.incremental_fp),
+                     guard_matmul=args.guard_matmul,
+                     delta_matmul=args.delta_matmul, **engine_kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = eng.check(max_depth=args.max_depth, max_states=budget)
@@ -90,6 +100,8 @@ def main(argv=None):
         "sym_canon": res.sym_canon,
         "incremental_fp": eng.incremental_fp and
         eng.fpr.supports_incremental(),
+        "guard_matmul": eng.guard_matmul,
+        "delta_matmul": eng.expander.delta_active,
         "distinct_states": res.distinct_states,
         "generated_states": res.generated_states,
         "depth": res.depth,
@@ -104,9 +116,11 @@ def main(argv=None):
         "hard_chunk_max": res.hard_chunk_max,
     }
     if args.profile:
+        fp.PROBE_CLAIM_LAUNCHES.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _res, wall_prof, _eng = run()
+        steps = fp.PROBE_CLAIM_LAUNCHES.count
         # device-side events only (the kernels): an operator's row
         # repeats the device time of the kernels it launched
         rows = []
@@ -119,12 +133,16 @@ def main(argv=None):
                 rows.append((dev_us, e.key, e.count))
         rows.sort(reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
+        n_launch = sum(r[2] for r in rows)
         out.update({
             "profiled_wall_s": wall_prof,
             "device_busy_ms": busy_ms,
             # against the unprofiled wall: the kernels are the same, the
             # profiler only slows the host
             "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "device_launches": n_launch,
+            "chunk_steps": steps,
+            "launches_per_chunk": n_launch / max(steps, 1),
             "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
                              "calls": n} for us, k, n in rows[:args.top]],
         })
