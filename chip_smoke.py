@@ -15,21 +15,22 @@ Phases (any failure exits non-zero before the final line):
      kernel's claim rounds must equal the CPU model's
      (``probe_claim_insert_rounds``); (d) and (f) are timed;
   4. the main path: ``Engine(config #1).check(max_states=2_000_000)``
-     on the card, in the engine's default expansion (the int8 guard
-     product and the delta group) with incremental fingerprints (the
-     default at 6 permutations), must give 2,540,315 distinct states,
-     depth 19, no violation, and the reference's level sizes; the
-     kernel's launches in this run are counted and timed, with their
-     claim rounds; then the same check timed with direct fingerprints
-     (``incremental_fp=False``), and once more with the plain expansion
-     (``guard_matmul=False, delta_matmul=False``), which must give the
-     same answer;
+     on the card, in the engine's defaults (the burst for the small
+     levels, each chunk step and burst iteration a captured CUDA graph,
+     the int8 guard product and the delta group, incremental
+     fingerprints at 6 permutations), must give 2,540,315 distinct
+     states, depth 19, no violation, the reference's level sizes and
+     fused levels; the kernel's launches in this run are counted, one
+     per launch a replayed graph holds; then the same check with direct
+     fingerprints (``incremental_fp=False``), and once more with the
+     plain expansion (``guard_matmul=False, delta_matmul=False``),
+     which must give the same answer;
   5. BASELINE config #5 (5 servers, 120 permutations: "auto" resolves
      to the orbit-sort canonicalizer) with the reference's 600,000-state
-     budget must give 937,554 distinct states, depth 20, no violation
-     and the reference's level sizes; its kernel launches are counted
-     and timed, and the chunks whose hard lanes took the min-over-perms
-     fallback are counted;
+     budget must give 937,554 distinct states, depth 20, no violation,
+     the reference's level sizes and fused levels; its kernel launches
+     are counted, and the chunks whose hard lanes took the
+     min-over-perms fallback are counted;
   6. ``trace --target FirstCommit`` on a micro config must give the
      reference's 15-step witness, and the same micro check on the CPU
      (plain twin) must agree with the card;
@@ -38,7 +39,13 @@ Phases (any failure exits non-zero before the final line):
      ``torch._int_mm`` against the term form, and the delta group's
      candidates, counts and incremental fingerprints against the
      per-family kernels on the card and against the CPU's for the same
-     chunk; the guard product and ``materialize`` are timed per chunk.
+     chunk; the guard product and ``materialize`` are timed per chunk;
+  8. the captured chunk step against the eager one (the engine's
+     private ``_capture = False``) on config #1 to depth 16 on the
+     per-level path: archives (parents, lanes, states) and counts bit
+     for bit, the walls timed in turns (eager, graph, graph, eager);
+     the eager runs time each dedup launch with CUDA events (a capture
+     holds no timing event), which gives the kernel's main-path time.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -456,28 +463,36 @@ def expansion_phase(torch, Engine, cfg, card):
     return timing
 
 
-def run_path(torch, fp, Engine, cfg, engine_kw, max_states):
+def run_path(torch, fp, Engine, cfg, engine_kw, max_states=10 ** 9,
+             max_depth=10 ** 9, capture=True, store_states=False):
     """Drive ``Engine(cfg).check`` on the card with the kernel's launch
-    counter zeroed just before and read just after."""
-    eng = Engine(cfg, store_states=False, device="cuda", **engine_kw)
+    counter zeroed just before and read just after.  ``capture`` False
+    keeps the chunk step and the burst body eager (the engine's private
+    switch); only then are the launches timed with CUDA events."""
+    eng = Engine(cfg, store_states=store_states, device="cuda",
+                 **engine_kw)
+    eng._capture = capture
     torch.cuda.synchronize()
     ctr = fp.PROBE_CLAIM_LAUNCHES
-    ctr.reset(timing=True)
+    ctr.reset(timing=not capture)
     t0 = time.perf_counter()
-    res = eng.check(max_states=max_states)
+    res = eng.check(max_states=max_states, max_depth=max_depth)
     wall = time.perf_counter() - t0
     launches = ctr.count
-    kernel_ms = ctr.total_ms()
+    kernel_ms = ctr.total_ms() if not capture else None
     rounds = ctr.rounds()
     ctr.reset()
     per_launch = [r for r, _e in rounds]
     check(launches > 0, "the main path never launched the kernel")
     check(not any(e for _r, e in rounds),
           "a main-path launch found no fixpoint")
+    check(capture == (eng._graphs.replays > 0),
+          f"graph replays {eng._graphs.replays} with capture={capture}")
     return dict(
         eng=eng, res=res, wall=wall, launches=launches,
         kernel_ms=kernel_ms, rounds_max=max(per_launch, default=0),
         rounds_mean=sum(per_launch) / max(len(per_launch), 1),
+        replays=eng._graphs.replays, captures=eng._graphs.captures,
         sym_canon=res.sym_canon,
         incremental=eng.incremental_fp and eng.fpr.supports_incremental())
 
@@ -488,10 +503,57 @@ def report(name, r, card):
         f"{res.depth}, violations {len(res.violations)}, generated "
         f"{res.generated_states}")
     log(f"{name} [{card}]: wall {r['wall']:.2f} s, "
-        f"{res.distinct_states / r['wall']:.0f} states/s")
-    log(f"{name} [{card}]: probe_claim_insert launches {r['launches']}, "
-        f"kernel time {r['kernel_ms']:.1f} ms (CUDA events), claim rounds "
-        f"per launch max {r['rounds_max']} mean {r['rounds_mean']:.3f}")
+        f"{res.distinct_states / r['wall']:.0f} states/s; levels fused "
+        f"{res.levels_fused} in {res.burst_dispatches} burst dispatches "
+        f"({res.burst_bailouts} bailed); graphs captured {r['captures']}, "
+        f"replayed {r['replays']}")
+    timed = "" if r["kernel_ms"] is None else (
+        f", kernel time {r['kernel_ms']:.1f} ms (CUDA events), claim "
+        f"rounds per launch max {r['rounds_max']} mean "
+        f"{r['rounds_mean']:.3f}")
+    log(f"{name} [{card}]: probe_claim_insert launches "
+        f"{r['launches']}{timed}")
+
+
+def graph_phase(torch, fp, Engine, cfg, card):
+    """Phase 8: the captured chunk step against the eager one on config
+    #1 to depth 16 (per-level path), in turns eager, graph, graph,
+    eager; the first two are held bit for bit."""
+    import numpy as np
+    kw = dict(CONFIG1_ENGINE, burst=False)
+    runs = [run_path(torch, fp, Engine, cfg, kw, max_depth=16,
+                     capture=cap, store_states=(i < 2))
+            for i, cap in enumerate((False, True, True, False))]
+    sizes = CONFIG1_LEVEL_SIZES[:16]
+    for r in runs:
+        check(r["res"].level_sizes == sizes and r["res"].depth == 16,
+              f"phase 8 level sizes {r['res'].level_sizes}")
+    e, g = runs[0], runs[1]
+    check((g["res"].distinct_states, g["res"].generated_states,
+           g["launches"]) == (e["res"].distinct_states,
+                               e["res"].generated_states, e["launches"]),
+          "phase 8: captured and eager counts differ")
+    for a, b in zip((e["eng"]._parents, e["eng"]._lanes, e["eng"]._states),
+                    (g["eng"]._parents, g["eng"]._lanes, g["eng"]._states)):
+        check(len(a) == len(b), "phase 8: archive lengths differ")
+        for u, v in zip(a, b):
+            same = all(np.array_equal(u[k], v[k]) for k in u) \
+                if isinstance(u, dict) else np.array_equal(u, v)
+            check(same, "phase 8: the captured step's archives differ")
+    steps = e["launches"]
+    walls = [r["wall"] for r in runs]
+    log(f"phase 8 captured vs eager chunk step [{card}]: config #1 to "
+        f"depth 16 ({e['res'].distinct_states} states, {steps} chunk "
+        f"steps), archives and counts bit for bit; wall in turns eager "
+        f"{walls[0]:.3f} s, graph {walls[1]:.3f} s, graph {walls[2]:.3f} "
+        f"s, eager {walls[3]:.3f} s; graphs captured {g['captures']}, "
+        f"replayed {g['replays']}; dedup kernel {e['kernel_ms']:.2f} / "
+        f"{runs[3]['kernel_ms']:.2f} ms over {steps} launches (CUDA "
+        f"events, eager runs), rounds max {e['rounds_max']}")
+    return dict(walls=walls, steps=steps, replays=g["replays"],
+                captures=g["captures"], kernel_ms=e["kernel_ms"],
+                kernel_ms_2=runs[3]["kernel_ms"],
+                rounds_max=e["rounds_max"], rounds_mean=e["rounds_mean"])
 
 
 def check_answer(name, r, distinct, depth, level_sizes):
@@ -504,6 +566,7 @@ def check_answer(name, r, distinct, depth, level_sizes):
     check(res.level_sizes == level_sizes,
           f"{name}: level sizes {res.level_sizes}")
     check(res.overflow_faults == 0, f"{name}: overflow faults")
+    check(res.levels_fused > 0, f"{name}: no level ran on the burst")
 
 
 def main():
@@ -602,6 +665,8 @@ def main():
         "card == CPU == reference")
     # phase 7: the expansion's card-only paths
     t7 = expansion_phase(torch, Engine, cfg1, card)
+    # phase 8: the captured chunk step against the eager one
+    t8 = graph_phase(torch, fp, Engine, cfg1, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -619,15 +684,25 @@ def main():
         "rehash_plain_ms": meas["rehash_plain_ms"],
         "rehash_bound_ms": meas["rehash_bound_ms"],
         "rehash_rounds": meas["rehash_rounds"],
-        "main_path_ms": c5["kernel_ms"],
-        "main_path_rounds_max": c5["rounds_max"],
-        "main_path_rounds_mean": c5["rounds_mean"],
+        "main_path_ms": t8["kernel_ms"],
+        "main_path_ms_of": "config #1 to depth 16, eager chunk steps "
+                          "(phase 8), CUDA events per launch",
+        "main_path_launches": t8["steps"],
+        "main_path_rounds_max": t8["rounds_max"],
+        "main_path_rounds_mean": t8["rounds_mean"],
         "config1_launches": c1["launches"],
-        "config1_ms": c1["kernel_ms"],
         "config1_direct_launches": c1d["launches"],
-        "config1_direct_ms": c1d["kernel_ms"],
-        "config1_plain_expansion_launches": c1p["launches"],
-        "config1_plain_expansion_ms": c1p["kernel_ms"]}],
+        "config1_plain_expansion_launches": c1p["launches"]}],
+        "graphs": {
+            "config1_replays": c1["replays"],
+            "config1_captures": c1["captures"],
+            "config5_replays": c5["replays"],
+            "config5_captures": c5["captures"],
+            "depth16_steps": t8["steps"],
+            "depth16_wall_eager_graph_graph_eager_s": t8["walls"]},
+        "walls_s": {"config1": c1["wall"], "config1_direct": c1d["wall"],
+                    "config1_plain_expansion": c1p["wall"],
+                    "config5": c5["wall"]},
         "guard_product": {
             "call": "torch._int_mm", "shape": t7["int_mm_shape"],
             "int_mm_ms": t7["int_mm_ms"],

@@ -14,8 +14,9 @@ The bounds flags override the cfg's in-spec bounds as the reference
 CLI's do; ``--device`` picks the device (default cuda; the run raises
 when CUDA is absent unless ``--device cpu`` is given); ``--sym-canon``,
 ``--guard-matmul``, ``--delta-matmul`` and ``--fam-cap-density`` pick
-the engine's forms as the reference's do.  The stats keys are the
-reference CLI's names for the fields this port fills.
+the engine's forms, and ``check --burst/--no-burst`` and
+``--burst-levels`` its driver, as the reference's do.  The stats keys
+are the reference CLI's names for the fields this port fills.
 """
 
 from __future__ import annotations
@@ -76,6 +77,9 @@ def check_stats(res, fp_bits: int) -> dict:
         "fp_bits": fp_bits,
         "expected_fp_collisions": float(
             distinct * distinct / 2.0 ** (fp_bits + 1)),
+        "levels_fused": res.levels_fused,
+        "burst_dispatches": res.burst_dispatches,
+        "burst_bailouts": res.burst_bailouts,
         "level_sizes": list(res.level_sizes),
         # 1 = orbit-sort, 0 = min-over-perms: the resolved --sym-canon
         "sym_canon": res.sym_canon,
@@ -91,6 +95,7 @@ def _engine(cfg, args, store_states):
     from .engine.bfs import Engine
     return Engine(cfg, chunk=args.chunk, lcap=args.lcap, vcap=args.vcap,
                   ocap=args.ocap, store_states=store_states,
+                  burst=args.burst, burst_levels=args.burst_levels,
                   sym_canon=args.sym_canon,
                   guard_matmul=args.guard_matmul,
                   delta_matmul=args.delta_matmul,
@@ -135,6 +140,11 @@ def _check_target(name, ir) -> bool:
 
 
 def cmd_check(args) -> int:
+    if args.burst_levels is not None and args.burst_levels <= 0:
+        print(f"--burst-levels must be positive (got "
+              f"{args.burst_levels}); use --no-burst to disable "
+              "the fused-level path", file=sys.stderr)
+        return 2
     err = _fam_density(args)
     if err:
         print(err, file=sys.stderr)
@@ -239,9 +249,22 @@ def main(argv=None) -> int:
 
     pc = sub.add_parser("check", help="exhaustive model check")
     common(pc)
+    pc.add_argument("--burst", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="fuse runs of small levels: while the frontier "
+                         "fits the burst ring, whole levels run on the "
+                         "device with one host read per ring level "
+                         "(default); --no-burst keeps the per-level "
+                         "driver.  Same answer either way")
+    pc.add_argument("--burst-levels", type=int, default=None,
+                    metavar="K",
+                    help="max levels fused per burst dispatch "
+                         "(default 16)")
     pt = sub.add_parser("trace", help="witness trace for a scenario")
     common(pt)
     pt.add_argument("--target", required=True)
+    # trace runs the default driver, as the reference's does
+    pt.set_defaults(burst=True, burst_levels=None)
     args = ap.parse_args(argv)
     return {"check": cmd_check, "trace": cmd_trace}[args.cmd](args)
 

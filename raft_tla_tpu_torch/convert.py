@@ -30,15 +30,22 @@ def rows_to_torch(arrs: Dict[str, np.ndarray], device="cpu"):
     return out
 
 
-def rows_to_numpy(svT: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Batch-last tensors -> encoded rows {key: [N, ...]} in the codec's
-    dtypes (int32, bag uint32).  Always a copy: on the CPU ``.numpy()``
-    would alias the tensor's storage."""
+def arrays_to_numpy(arrs: Dict[str, torch.Tensor]
+                    ) -> Dict[str, np.ndarray]:
+    """State tensors in any layout -> numpy in the codec's dtypes (int32,
+    bag uint32).  Always a copy: on the CPU ``.numpy()`` would alias the
+    tensor's storage."""
     out = {}
-    for k, v in svT.items():
-        a = np.moveaxis(v.to(torch.int32).cpu().numpy(), -1, 0).copy()
+    for k, v in arrs.items():
+        a = v.to(torch.int32).cpu().numpy().copy()
         out[k] = a.view(np.uint32) if k == "bag" else a
     return out
+
+
+def rows_to_numpy(svT: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Batch-last tensors -> encoded rows {key: [N, ...]} in the codec's
+    dtypes, a copy."""
+    return arrays_to_numpy({k: v.movedim(-1, 0) for k, v in svT.items()})
 
 
 def words_to_torch(words: U32Words, device="cpu") -> torch.Tensor:

@@ -3,7 +3,7 @@
 The frontier, the candidate expansion, the visited set (an
 open-addressing hash table in device memory), the dedup, the invariant
 and constraint evaluation and the level buffer all live on the device;
-the host keeps the counters and reads back a few scalars per chunk.
+the host keeps the counters and reads back one packed row per level.
 
 Per frontier chunk (``_chunk_step``): guard-first expansion over the
 [B, A] lane grid (the int8 guard product by default), compaction of
@@ -14,24 +14,31 @@ from per-parent term tables where the fingerprinter supports it, else
 direct: minperm, or orbit-sort with the hard lanes' min over every
 permutation), claim-insert dedup into the visited table
 (``fingerprint.probe_claim_insert`` — the CUDA kernel) gated by the
-chunk's own overflow flag, then invariants and constraints on the
-fresh rows and their append to the level buffer.  Nothing is read back
-before the dedup launch; one read after it brings the enabled count,
-the overflow flags and the probe budget, and the fresh rows' indices
-are the second.  ``_finalize`` commits the level (the level buffer
+level's overflow flags, then the second compaction of the fresh rows
+(FCAP -> OCAP), invariants and constraints on them and their append
+to the level buffer.  The step reads nothing back: its cursor, counts
+and flags are device tensors updated in place, so on the card it runs
+as a captured CUDA graph (``graph.GraphRunner``).  ``_finalize`` reads
+the level's scalars once and commits the level (the level buffer
 becomes the frontier) or, when a buffer overflowed, rolls the visited
 table back through the level's insert journal and leaves the frontier
 intact, so the host can grow the capacity and replay the level.
 
-This is the reference's per-level driver (``raft_tla_tpu/engine/
-bfs.py``, ``burst=False``) with the same capacity model: ``chunk``
-frontier rows per step, LCAP level rows (an OCAP append margin
-reserved), FCAP enabled candidates per chunk, OCAP fresh rows per
-chunk, VCAP table slots (a power of two, grown ×4 past load 0.40),
-per-family caps, and in sort mode HCAP hard lanes per chunk (the
-fallback's fixed-width buffer, so finding them needs no host sync);
-any overflow replays the level with the cap grown.
-State identity, first-seen order and global ids equal the
+While the frontier fits a ring of ``_BURST_CHUNKS`` chunks, the burst
+(``_burst_body``, the reference's ``_burst_core``) runs whole levels
+one chunk per iteration with the same front half, committing a level
+on the device whenever its chunks are done; the host reads the loop
+state once per ring level, and any overflow bails the level back to
+the per-level path.
+
+This is the reference's driver (``raft_tla_tpu/engine/bfs.py``) with
+the same capacity model: ``chunk`` frontier rows per step, LCAP level
+rows (an OCAP append margin reserved), FCAP enabled candidates per
+chunk, OCAP fresh rows per chunk, VCAP table slots (a power of two,
+grown ×4 past load 0.40), per-family caps, and in sort mode HCAP hard
+lanes per chunk (the fallback's fixed-width buffer, so finding them
+needs no host sync); any overflow replays the level with the cap
+grown.  State identity, first-seen order and global ids equal the
 reference's: candidates are enumerated in ascending (row, lane) order
 and the dedup resolves lanes in that order.
 """
@@ -46,8 +53,8 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..convert import (rows_to_numpy, rows_to_torch, words_to_numpy,
-                       words_to_torch)
+from ..convert import (arrays_to_numpy, rows_to_numpy, rows_to_torch,
+                       words_to_numpy, words_to_torch)
 from ..ops.codec import C_OVERFLOW
 from ..spec import spec_of
 from ..utils import (fmix32_int, fp_key, HOME_SALT, resolve_device,
@@ -55,6 +62,7 @@ from ..utils import (fmix32_int, fp_key, HOME_SALT, resolve_device,
 from . import driver
 from .expand import Expander, compact_positions
 from .fingerprint import probe_claim_insert, resolve_sym_canon
+from .graph import GraphRunner
 
 EMPTY = -1          # the all-ones u32 key, as int32: an empty table slot
 
@@ -80,6 +88,9 @@ class CheckResult:
         self.violations: List[Violation] = []
         self.level_sizes: List[int] = []
         self.seconds = 0.0
+        # the fused path: levels committed inside bursts, burst
+        # dispatches, and dispatches that ended in a bail
+        self.levels_fused = self.burst_dispatches = self.burst_bailouts = 0
         # 1 = orbit-sort canonical fingerprints, 0 = min-over-perms (the
         # resolved mode, as the reference reports it)
         self.sym_canon = 0
@@ -98,16 +109,27 @@ def _ceil_log2(n: int) -> int:
     return max(1, int(np.ceil(np.log2(max(n, 2)))))
 
 
-class _Level:
-    """The per-level device buffers and counters (the reference's
-    jit carry, held here as tensors plus host ints)."""
+def _scalar(device, dtype=torch.int64) -> torch.Tensor:
+    return torch.zeros((), dtype=dtype, device=device)
 
-    def __init__(self, eng: "Engine", lcap: int, vis: torch.Tensor):
+
+class _Level:
+    """The per-level device buffers and counters (the reference's jit
+    carry).  Every count and flag a chunk step touches is a device
+    tensor updated in place, so the step is one fixed program over
+    these buffers; a commit copies the level's rows into the frontier
+    buffer rather than swapping the two, so one captured step serves
+    every level.  The visited table is a view of a flat buffer with one
+    spare slot at its end, where masked entries of a clearing scatter
+    go."""
+
+    def __init__(self, eng: "Engine", lcap: int, table: torch.Tensor):
         dev = eng.device
         one = eng.ir.narrow(eng.lay, rows_to_torch(
             {k: v[None] for k, v in eng.ir.encode(
                 eng.lay, *eng.ir.init_state(eng.cfg)).items()}, dev))
-        self.vis = vis
+        self.W = eng.W
+        self.set_table(table)
         self.lvl = {k: torch.zeros(v.shape[:-1] + (lcap,), dtype=v.dtype,
                                    device=dev) for k, v in one.items()}
         self.front = {k: torch.zeros_like(v) for k, v in self.lvl.items()}
@@ -118,32 +140,92 @@ class _Level:
         self.lcon = torch.ones(lcap, dtype=torch.bool, device=dev)
         self.lpar = torch.full((lcap,), -1, dtype=torch.int32, device=dev)
         self.llane = torch.full((lcap,), -1, dtype=torch.int32, device=dev)
-        self.n_front = 0
-        self.g_off = 0          # global state-id offset (this level)
-        self.pg_off = 0         # global state-id offset (frontier)
-        self.reset(len(eng.expander.families))
+        self.n_front = _scalar(dev)
+        self.g_off = _scalar(dev)     # global state-id offset (this level)
+        self.pg_off = _scalar(dev)    # global state-id offset (frontier)
+        self.n_front_h = 0            # n_front as the last read gave it
+        self.base = _scalar(dev)      # chunk cursor within the frontier
+        self.n_lvl = _scalar(dev)
+        self.n_gen = _scalar(dev)
+        self.ofx = _scalar(dev)       # max fresh rows in any chunk
+        self.ovf, self.fovf, self.hovf, self.oovf = (
+            _scalar(dev, torch.bool) for _ in range(4))
+        self.hcovf = _scalar(dev, torch.bool)   # hard lanes past HCAP
+        # the most enabled lanes per family in any chunk
+        self.famx = torch.zeros(len(eng.expander.families),
+                                dtype=torch.int32, device=dev)
+        # sort mode: hard lanes, chunks with any, the most in a chunk
+        self.hard = torch.zeros(3, dtype=torch.int64, device=dev)
+
+    def set_table(self, flat: torch.Tensor):
+        self.vis_flat = flat
+        self.vis = flat[:-1].view(self.W, -1)
 
     @property
     def lcap(self) -> int:
         return self.lpar.shape[0]
 
-    def reset(self, n_fams: int):
-        self.n_lvl = 0
-        self.n_gen = 0
-        self.ovf = self.fovf = self.hovf = self.oovf = False
-        self.hcovf = False      # more hard lanes in a chunk than HCAP
-        self.hard = [0, 0, 0]   # hard lanes, chunks with any, chunk max
-        self.famx = [0] * n_fams
-        # the most enabled lanes per family in any chunk, on the device
-        self.famx_d = torch.zeros(n_fams, dtype=torch.int32,
-                                  device=self.fmask.device)
-        self.ofx = 0            # max fresh rows in any chunk
-        self.base = 0           # chunk cursor within the frontier
+    @property
+    def vcap(self) -> int:
+        return self.vis.shape[1]
 
     @property
-    def bad(self) -> bool:
-        return self.ovf or self.fovf or self.hovf or self.oovf or \
-            self.hcovf
+    def flags(self):
+        return self.ovf, self.fovf, self.hovf, self.oovf, self.hcovf
+
+    def reset(self):
+        for t in (self.base, self.n_lvl, self.n_gen, self.ofx, self.famx,
+                  self.hard, *self.flags):
+            t.zero_()
+
+
+class _Ring:
+    """The burst's ring-width buffers, the reference's ``_burst_core``
+    loop state: the frontier ring (KB = ``_BURST_CHUNKS`` chunks of
+    rows, with each row's global id), the level ring with its insert
+    journal, the per-level archives of up to ``burst_levels`` levels
+    and the [levels + 1, 8] stats.  The level ring has a spare column
+    and the archives and stats a spare row: a masked scatter writes
+    there, and nothing reads it."""
+
+    def __init__(self, eng: "Engine", st: _Level):
+        dev, KB, L = eng.device, eng._burst_width(), eng.burst_levels
+        n_inv = len(eng.inv_names)
+        self.fr = {k: torch.zeros(v.shape[:-1] + (KB,), dtype=v.dtype,
+                                  device=dev) for k, v in st.front.items()}
+        self.lv = {k: torch.zeros(v.shape[:-1] + (KB + 1,), dtype=v.dtype,
+                                  device=dev) for k, v in st.front.items()}
+        self.fm = torch.zeros(KB, dtype=torch.bool, device=dev)
+        self.gd = torch.zeros(KB, dtype=torch.int64, device=dev)
+        self.lvp = torch.full((KB + 1,), -1, dtype=torch.int32, device=dev)
+        self.lvlane = torch.full((KB + 1,), -1, dtype=torch.int32,
+                                 device=dev)
+        self.jsl = torch.zeros(KB + 1, dtype=torch.int32, device=dev)
+        self.lin = torch.ones((n_inv, KB + 1), dtype=torch.bool, device=dev)
+        self.lco = torch.ones(KB + 1, dtype=torch.bool, device=dev)
+        self.stats = torch.zeros((L + 1, 8), dtype=torch.int64, device=dev)
+        self.opar = torch.full((L + 1, KB), -1, dtype=torch.int32,
+                               device=dev)
+        self.olane = torch.full((L + 1, KB), -1, dtype=torch.int32,
+                                device=dev)
+        self.ost = {k: torch.zeros(v.shape[:-1] + (L + 1, KB), dtype=v.dtype,
+                                   device=dev) for k, v in st.front.items()}
+        self.oinv = torch.ones((n_inv, L + 1, KB), dtype=torch.bool,
+                               device=dev)
+        (self.nf, self.base, self.nl, self.gl, self.li, self.done, self.g,
+         self.pg, self.lv_left, self.st_cap) = (_scalar(dev)
+                                                for _ in range(10))
+        self.bail = _scalar(dev, torch.bool)
+        self.viol = _scalar(dev, torch.bool)
+        # sort mode: hard-lane stats of the committed levels, and of
+        # the level under way
+        self.hard = torch.zeros(3, dtype=torch.int64, device=dev)
+        self.hard_l = torch.zeros(3, dtype=torch.int64, device=dev)
+
+
+def _hard_add(h: torch.Tensor, nh: torch.Tensor) -> torch.Tensor:
+    """Hard-lane stats [sum, chunks with any, max] plus one chunk's."""
+    return torch.stack([h[0] + nh, h[1] + (nh > 0), torch.maximum(h[2], nh)])
 
 
 class Engine:
@@ -159,6 +241,12 @@ class Engine:
     incremental_fp — incremental per-action fingerprints where the
                fingerprinter supports them (minperm, at most 24
                permutations); bit-identical to the direct path.
+    burst    — fuse small levels (the reference's default): while the
+               frontier fits the ring of ``_BURST_CHUNKS`` chunks, run
+               up to ``burst_levels`` (default 16) whole levels in one
+               dispatch whose only reads are the host's checks between
+               its iterations; False keeps the per-level driver.  The
+               same answer either way.
     guard_matmul, delta_matmul, delta_chunk_skip — the expansion's
                forms (``expand.Expander``); every setting gives the
                same answer.
@@ -170,15 +258,23 @@ class Engine:
                fixed-width buffer holds (default: chunk); grows on
                overflow.
     device   — "cuda" by default; "cpu" only when asked for.
+
+    On the card the chunk step and the burst body run as captured CUDA
+    graphs (``graph.GraphRunner``); ``_capture = False`` keeps them
+    eager there, to hold a graph against the program it captured.
     """
 
     _LOAD_MAX = 0.40
+    _BURST_LEVELS = 16
+    _BURST_CHUNKS = 4           # the burst ring's width, in chunks
 
     def __init__(self, cfg: ModelConfig, chunk: int = 512,
                  store_states: bool = True,
                  lcap: int = 1 << 14, vcap: int = 1 << 17,
                  fcap: Optional[int] = None, ocap: Optional[int] = None,
-                 incremental_fp: bool = True, sym_canon: str = "auto",
+                 incremental_fp: bool = True,
+                 burst: bool = True, burst_levels: Optional[int] = None,
+                 sym_canon: str = "auto",
                  hcap: Optional[int] = None,
                  guard_matmul: bool = True, delta_matmul: bool = True,
                  delta_chunk_skip: Optional[bool] = None,
@@ -188,6 +284,10 @@ class Engine:
             raise NotImplementedError(
                 "cfg prefix pins and ACTION_CONSTRAINTS are not ported "
                 "yet")
+        if burst_levels is not None and int(burst_levels) <= 0:
+            raise ValueError(
+                f"burst_levels must be positive, got {burst_levels} "
+                "(use burst=False to disable the fused-level path)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ir = spec_of(cfg)
@@ -207,6 +307,9 @@ class Engine:
         self.fpr = self.ir.make_fingerprinter(
             cfg, sym_canon=resolve_sym_canon(cfg, sym_canon))
         self.incremental_fp = incremental_fp
+        self.burst = bool(burst)
+        self.burst_levels = (int(burst_levels) if burst_levels
+                             else self._BURST_LEVELS)
         self.preds = self.ir.make_predicates(self.lay)
         self.inv_names = list(cfg.invariants)
         self.con_names = list(cfg.constraints)
@@ -226,10 +329,17 @@ class Engine:
                                                        self.fam_density)
         self._caps_dev = (None, None)
         self.HCAP = int(hcap) if hcap else self.chunk
+        self._capture = True
+        self._graphs = GraphRunner(self.device, False)
 
     def _round_cap(self, n: int) -> int:
         c = self.chunk
         return ((int(n) + c - 1) // c) * c
+
+    def _burst_width(self) -> int:
+        """The ring's width (states): the largest frontier the fused
+        path takes."""
+        return self._BURST_CHUNKS * self.chunk
 
     # ------------------------------------------------------------------
     # invariants + constraints on batch-last rows
@@ -251,6 +361,21 @@ class Engine:
     # ------------------------------------------------------------------
     # the visited table
     # ------------------------------------------------------------------
+
+    def _new_table(self, vcap: int) -> torch.Tensor:
+        """An empty table's flat buffer: W·VCAP slots and a spare one."""
+        return torch.full((self.W * vcap + 1,), EMPTY, dtype=torch.int32,
+                          device=self.device)
+
+    def _clear_slots(self, st: _Level, slots: torch.Tensor,
+                     mask: torch.Tensor):
+        """EMPTY the table slots ``slots`` [n] where ``mask`` [n]: one
+        scatter of a constant, masked entries sent to the spare slot,
+        so repeated slots cannot race."""
+        W, V = self.W, st.vcap
+        words = torch.arange(W, device=self.device)[:, None] * V
+        idx = torch.where(mask[None], slots.long()[None] + words, W * V)
+        st.vis_flat.index_fill_(0, idx.reshape(-1), EMPTY)
 
     def _host_probe_assign(self, keys: np.ndarray,
                            vcap: Optional[int] = None) -> np.ndarray:
@@ -274,125 +399,58 @@ class Engine:
 
     def _rehash_tables(self, vis: torch.Tensor, new_vcap: int):
         """Grow the visited table: claim-insert every occupied slot, in
-        ascending slot order, into a fresh table of ``new_vcap``."""
+        ascending slot order, into a fresh table of ``new_vcap``.
+        Returns the new table's flat buffer."""
         keys = vis[:, ~(vis == EMPTY).all(0)].contiguous()
-        new = torch.full((self.W, new_vcap), EMPTY, dtype=torch.int32,
-                         device=self.device)
+        flat = self._new_table(new_vcap)
         live = torch.ones(keys.shape[1], dtype=torch.bool,
                           device=self.device)
-        _fresh, _pos, hv = probe_claim_insert(new, keys, live)
+        _fresh, _pos, hv = probe_claim_insert(
+            flat[:-1].view(self.W, new_vcap), keys, live)
         if bool(hv):
             raise RuntimeError("rehash did not converge — table "
                                "pathologically full; raise vcap")
-        return new
+        return flat
 
     # ------------------------------------------------------------------
-    # one frontier chunk
+    # the shared front half of a chunk step and a burst iteration
     # ------------------------------------------------------------------
 
-    def _chunk_step(self, st: _Level):
-        """Expand frontier[base:base+chunk], fingerprint, dedup into the
-        visited table, evaluate invariants/constraints on the fresh
-        rows and append them to the level buffer."""
-        B, A = self.chunk, self.A
-        FCAP = self.FCAP
-        base = st.base
-        st.base += B
-        if base >= st.n_front:
-            return
-        # a fixed B-row window (LCAP is a multiple of the chunk); rows
-        # past the frontier are masked out of the lane grid
-        sv = self.ir.widen({k: v[..., base:base + B]
-                            for k, v in st.front.items()})
-        valid = st.fmask[base:base + B] & (
-            torch.arange(B, device=self.device) < st.n_front - base)
+    def _expand_fp_chunk(self, sv, valid: torch.Tensor, fcap: int):
+        """Guard-first expansion over the [B, A] lane grid (rows outside
+        ``valid`` [B] disabled), compaction of the enabled lanes into the
+        fixed-width FCAP candidate buffer in ascending (row, lane) order,
+        successor materialization and the symmetry-canonical
+        fingerprint (the reference's ``_expand_fp_chunk``).  Returns
+        (cand [..., fcap], elive [fcap], keys [W, fcap], lanes [fcap]
+        (buffer slot -> flat lane), counts [n_fams], n_e, n_hard), the
+        per-family and total enabled counts and, in sort mode, the live
+        hard lanes as device data (n_hard None otherwise).  Columns
+        past n_e are garbage: they are not live."""
         derb = self.kern.derived(sv)
         okf = (self.expander.guards_T(sv, derb) &
                valid[:, None]).reshape(-1)
-        if st.bad:
-            # the level replays: insert nothing, so the journal stays
-            # the exact record of this level's table writes, but keep
-            # the per-family maxima the replay sizes its caps from
-            st.famx_d = torch.maximum(st.famx_d,
-                                      self.expander.family_counts(okf))
-            return
-        # enabled lanes in ascending (row, lane) order = the oracle's
-        # successor enumeration order, at fixed positions in FCAP
-        epos, n_e = compact_positions(okf, FCAP)
-        elive = torch.arange(FCAP, device=self.device) < n_e
+        epos, n_e = compact_positions(okf, fcap)
+        elive = torch.arange(fcap, device=self.device) < n_e
         n_hard = None
         if self.incremental_fp and self.fpr.supports_incremental():
             tables = self.fpr.parent_tables(sv)
             cand, counts, keys = self.expander.materialize(
-                sv, derb, okf, epos, FCAP, self.FAM_CAPS,
+                sv, derb, okf, epos, fcap, self.FAM_CAPS,
                 delta_fp=(self.fpr, tables))
         else:
             cand, counts = self.expander.materialize(
-                sv, derb, okf, epos, FCAP, self.FAM_CAPS)
-            # columns past n_e are garbage: they must not count as hard
-            # lanes, or they would fill the fallback's buffer
+                sv, derb, okf, epos, fcap, self.FAM_CAPS)
+            # columns past n_e must not count as hard lanes, or they
+            # would fill the fallback's buffer
             keys, n_hard = self.fpr.fingerprint_chunk_T(cand, self.HCAP,
                                                         live=elive)
-        st.famx_d = torch.maximum(st.famx_d, counts)
-        # a chunk whose enabled lanes overflow FCAP or a family cap has
-        # an incomplete buffer: it inserts nothing and the level replays
-        fovf = (n_e > FCAP) | (counts > self._caps_t()).any()
-        fresh, pos, hv = probe_claim_insert(st.vis, keys, elive & ~fovf)
-        # the step's one read: probe budget, hard lanes, enabled count,
-        # overflow flag and the per-family maxima
-        none = torch.full((1,), -1, dtype=torch.int64, device=self.device)
-        got = torch.cat([hv.reshape(1).to(torch.int64),
-                         none if n_hard is None
-                         else n_hard.reshape(1).to(torch.int64),
-                         n_e.reshape(1).to(torch.int64),
-                         fovf.reshape(1).to(torch.int64),
-                         st.famx_d.to(torch.int64)]).tolist()
-        hv, nh, n_e, fovf = got[:4]
-        st.famx = got[4:]
-        if fovf:
-            st.fovf = True
-            return
-        st.n_gen += n_e
-        st.hovf |= bool(hv)
-        hcovf_now = False
-        if nh >= 0:
-            st.hard = [st.hard[0] + nh, st.hard[1] + (nh > 0),
-                       max(st.hard[2], nh)]
-            hcovf_now = nh > self.HCAP
-        fidx = fresh.nonzero().squeeze(1)
-        n_fresh = fidx.shape[0]
-        # the chunk-local overflows share the revert path: level buffer
-        # full (ovf; the margin is OCAP), fresh rows past OCAP, and hard
-        # lanes past HCAP (some keys were not canonical)
-        ovf_now = st.n_lvl + n_fresh > st.lcap - self.OCAP
-        oovf_now = n_fresh > self.OCAP
-        if ovf_now or oovf_now or hcovf_now:
-            st.vis[:, pos[fidx].long()] = EMPTY
-            st.ovf |= ovf_now
-            st.oovf |= oovf_now
-            st.hcovf |= hcovf_now
-            return
-        if n_fresh == 0:
-            return
-        rows = {k: v[..., fidx] for k, v in cand.items()}
-        inv, con = self._phase2_T(rows)
-        rows_n = self.ir.narrow(self.lay, rows)
-        s, e = st.n_lvl, st.n_lvl + n_fresh
-        for k, v in st.lvl.items():
-            v[..., s:e] = rows_n[k]
-        # buffer slot -> flat lane: the fresh slots' enabled lanes
-        lane = self._slot_lanes(epos, FCAP)[fidx]
-        st.lpar[s:e] = (st.pg_off + base + lane // A).to(torch.int32)
-        st.llane[s:e] = (lane % A).to(torch.int32)
-        st.jslot[s:e] = pos[fidx]
-        st.linv[:, s:e] = inv
-        st.lcon[s:e] = con
-        st.n_lvl = e
-        st.ofx = max(st.ofx, n_fresh)
+        return (cand, elive, keys, self._slot_lanes(epos, fcap), counts,
+                n_e, n_hard)
 
     def _caps_t(self) -> torch.Tensor:
         """FAM_CAPS as a device tensor (copied once per value: the caps
-        change only between levels)."""
+        change only between levels, before any capture)."""
         if self._caps_dev[0] != self.FAM_CAPS:
             self._caps_dev = (self.FAM_CAPS, torch.tensor(
                 self.FAM_CAPS, dtype=torch.int32, device=self.device))
@@ -401,64 +459,314 @@ class Engine:
     @staticmethod
     def _slot_lanes(epos: torch.Tensor, fcap: int) -> torch.Tensor:
         """Buffer slot -> flat lane id [fcap] (slots past the enabled
-        count hold the grid size)."""
+        count hold the grid size; lanes past fcap, which only an
+        overflowing chunk has, go to the spare slot)."""
         N = epos.shape[0]
         out = torch.full((fcap + 1,), N, dtype=torch.int64,
                          device=epos.device)
-        return out.scatter_(0, epos.long(), torch.arange(
+        return out.scatter_(0, epos.long().clamp(max=fcap), torch.arange(
             N, device=epos.device))[:fcap]
+
+    @staticmethod
+    def _compact(fresh: torch.Tensor, ocap: int) -> torch.Tensor:
+        """The second compaction: out row -> buffer slot [ocap] of the
+        fresh slots, in slot order (rows past the fresh count hold 0)."""
+        n = fresh.shape[0]
+        opos = torch.where(fresh, torch.cumsum(fresh, 0) - 1, ocap)
+        out = torch.zeros(ocap + 1, dtype=torch.int64, device=fresh.device)
+        return out.scatter_(0, opos, torch.arange(
+            n, device=fresh.device))[:ocap]
+
+    def _graph_key(self, kind: str, st: _Level):
+        """What a captured step or burst iteration is specialised to."""
+        return (kind, self.chunk, self.FCAP, self.OCAP,
+                tuple(self.FAM_CAPS), self.HCAP, st.lcap, st.vcap,
+                self.incremental_fp and self.fpr.supports_incremental(),
+                self.fpr.sym_canon)
+
+    # ------------------------------------------------------------------
+    # one frontier chunk (the reference's _chunk_step_impl)
+    # ------------------------------------------------------------------
+
+    def _chunk_step(self, st: _Level):
+        """Expand the B frontier rows at the device cursor, fingerprint,
+        dedup into the visited table, evaluate invariants/constraints on
+        the fresh rows and append them to the level buffer.  Reads
+        nothing back: the counts and flags stay on the device, the dedup
+        gate is device data and the fresh rows take the second
+        compaction (FCAP -> OCAP), so the step is one fixed program."""
+        B, A, FCAP, OCAP = self.chunk, self.A, self.FCAP, self.OCAP
+        LCAP, dev = st.lcap, self.device
+        # the chunk window: a gather at base + arange(B) (LCAP is a
+        # multiple of the chunk); rows past the frontier are masked
+        rows = st.base + torch.arange(B, device=dev)
+        win = rows.clamp(max=LCAP - 1)
+        sv = self.ir.widen({k: v.index_select(-1, win)
+                            for k, v in st.front.items()})
+        valid = st.fmask.index_select(0, win) & (rows < st.n_front)
+        cand, elive, keys, lanes, counts, n_e, n_hard = \
+            self._expand_fp_chunk(sv, valid, FCAP)
+        torch.maximum(st.famx, counts, out=st.famx)
+        # a chunk whose enabled lanes overflow FCAP or a family cap, or
+        # whose hard lanes overflow HCAP, has an incomplete or
+        # non-canonical buffer: the level replays
+        st.fovf |= (n_e > FCAP) | (counts > self._caps_t()).any()
+        if n_hard is not None:
+            st.hard.copy_(_hard_add(st.hard, n_hard.long()))
+            st.hcovf |= n_hard > self.HCAP
+        st.n_gen += n_e.clamp(max=FCAP)
+        # once the level replays, insert nothing, so the journal stays
+        # the exact record of its table writes
+        gate = ~(st.ovf | st.fovf | st.hovf | st.oovf | st.hcovf)
+        fresh, pos, hv = probe_claim_insert(st.vis, keys, elive & gate)
+        st.hovf |= hv
+        n_fresh = fresh.sum()
+        # the chunk-local overflows: level buffer full (the margin is
+        # OCAP) and fresh rows past OCAP; revert this chunk's inserts
+        # on the spot (earlier chunks' at finalize, via the journal)
+        ovf_now = st.n_lvl + n_fresh > LCAP - OCAP
+        oovf_now = n_fresh > OCAP
+        bad_now = ovf_now | oovf_now
+        self._clear_slots(st, pos, fresh & bad_now)
+        st.ovf |= ovf_now
+        st.oovf |= oovf_now
+        fresh = fresh & ~bad_now
+        n_fresh = torch.where(bad_now, 0, n_fresh)
+        # the second compaction, then a contiguous append at n_lvl:
+        # rows past n_fresh are garbage beyond the new n_lvl
+        lidx = self._compact(fresh, OCAP)
+        lane = lanes[lidx]
+        rows_f = {k: v.index_select(-1, lidx) for k, v in cand.items()}
+        inv, con = self._phase2_T(rows_f)
+        rows_n = self.ir.narrow(self.lay, rows_f)
+        dst = st.n_lvl.clamp(max=LCAP - OCAP) + torch.arange(OCAP,
+                                                             device=dev)
+        for k, v in st.lvl.items():
+            v.index_copy_(v.dim() - 1, dst, rows_n[k])
+        st.lpar.index_copy_(0, dst, (st.pg_off + st.base + lane // A)
+                            .to(torch.int32))
+        st.llane.index_copy_(0, dst, (lane % A).to(torch.int32))
+        st.jslot.index_copy_(0, dst, pos.index_select(0, lidx))
+        st.linv.index_copy_(1, dst, inv)
+        st.lcon.index_copy_(0, dst, con)
+        st.n_lvl.copy_((st.n_lvl + n_fresh).clamp(max=LCAP - OCAP))
+        torch.maximum(st.ofx, n_fresh, out=st.ofx)
+        st.base += B
 
     # ------------------------------------------------------------------
     # per-level finalize: commit, or roll the table back via the journal
     # ------------------------------------------------------------------
 
     def _finalize(self, st: _Level) -> Tuple[List[int], torch.Tensor]:
-        """Returns (scal, inv_ok): scal = [n_lvl, n_viol, faults,
-        n_front, ovf, fovf, n_gen, n_expand, hovf, oovf, ofx] + famx,
-        the reference's per-level scalar row, + [hcovf, the most hard
-        lanes in one chunk]."""
-        n_lvl = st.n_lvl
+        """The level's one read: every scalar packed into one tensor.
+        Returns (scal, inv_ok): scal = [n_lvl, n_viol, faults, n_front,
+        ovf, fovf, n_gen, n_expand, hovf, oovf, ofx] + famx, the
+        reference's per-level scalar row, + [hcovf, the most hard lanes
+        in one chunk].  A clean level is committed: its rows are copied
+        into the frontier buffer and ``fmask`` is rewritten in place; an
+        overflowed one rolls the table back through the level's insert
+        journal and keeps the frontier."""
+        validrow = torch.arange(st.lcap, device=self.device) < st.n_lvl
+        n_viol = (~st.linv & validrow).sum()
+        faults = ((st.lvl["ctr"][C_OVERFLOW] > 0) & validrow).sum()
+        n_expand = (st.lcon & validrow).sum()
+        got = torch.cat([
+            torch.stack([st.n_lvl, n_viol, faults, st.n_gen, n_expand,
+                         st.ofx] + [f.long() for f in st.flags]),
+            st.famx.long(), st.hard]).tolist()
+        n_lvl, n_viol, faults, n_gen, n_expand, ofx = got[:6]
+        ovf, fovf, hovf, oovf, hcovf = got[6:11]
+        nf = len(st.famx)
+        famx, hard = got[11:11 + nf], got[11 + nf:]
         inv_ok = st.linv[:, :n_lvl]
-        con = st.lcon[:n_lvl]
-        n_viol = int((~inv_ok).sum())
-        faults = int((st.lvl["ctr"][C_OVERFLOW, :n_lvl] > 0).sum())
-        n_expand = int(con.sum())
-        if st.bad:
-            # chunks after the overflow only updated the device maxima
-            st.famx = st.famx_d.tolist()
+        if ovf or fovf or hovf or oovf or hcovf:
             # clear exactly the journaled inserts; a cleared cohort
             # postdates every surviving key, so it cannot sit on a
             # surviving key's probe path
             st.vis[:, st.jslot[:n_lvl].long()] = EMPTY
         else:
-            # the level buffer BECOMES the frontier; constraint-pruned
-            # rows stay in place, masked out of expansion by fmask
-            st.front, st.lvl = st.lvl, st.front
-            st.fmask = torch.zeros_like(st.fmask)
-            st.fmask[:n_lvl] = con
-            st.n_front = n_lvl
-            st.pg_off = st.g_off
-            st.g_off += n_lvl
+            # the level becomes the frontier; constraint-pruned rows
+            # stay in place, masked out of expansion by fmask
+            for k, v in st.front.items():
+                v[..., :n_lvl] = st.lvl[k][..., :n_lvl]
+            st.fmask.copy_(st.lcon & validrow)
+            st.n_front.copy_(st.n_lvl)
+            st.n_front_h = n_lvl
+            st.pg_off.copy_(st.g_off)
+            st.g_off += st.n_lvl
             h = self.hard_stats
-            self.hard_stats = [h[0] + st.hard[0], h[1] + st.hard[1],
-                               max(h[2], st.hard[2])]
-        scal = [n_lvl, n_viol, faults, st.n_front, int(st.ovf),
-                int(st.fovf), st.n_gen, n_expand, int(st.hovf),
-                int(st.oovf), st.ofx] + list(st.famx) + \
-            [int(st.hcovf), st.hard[2]]
-        st.reset(len(self.expander.families))
+            self.hard_stats = [h[0] + hard[0], h[1] + hard[1],
+                               max(h[2], hard[2])]
+        scal = [n_lvl, n_viol, faults, st.n_front_h, ovf, fovf, n_gen,
+                n_expand, hovf, oovf, ofx] + famx + [hcovf, hard[2]]
+        st.reset()
         return scal, inv_ok
 
     def _grow(self, st: _Level, lcap: int) -> _Level:
         """Re-home the frontier and the table into a level state of
         ``lcap`` rows (the level buffer is reset; callers replay)."""
-        new = _Level(self, lcap, st.vis)
+        new = _Level(self, lcap, st.vis_flat)
         n = st.lcap
         for k, v in st.front.items():
             new.front[k][..., :n] = v
         new.fmask[:n] = st.fmask
-        new.n_front, new.g_off, new.pg_off = st.n_front, st.g_off, st.pg_off
+        for a, b in ((new.n_front, st.n_front), (new.g_off, st.g_off),
+                     (new.pg_off, st.pg_off)):
+            a.copy_(b)
+        new.n_front_h = st.n_front_h
         return new
+
+    # ------------------------------------------------------------------
+    # the small-level burst (the reference's _burst_core / _burst_impl)
+    # ------------------------------------------------------------------
+
+    def _burst_body(self, st: _Level, r: _Ring):
+        """One iteration of the burst loop, predicated on the loop's
+        condition: one frontier chunk of the ring through the same
+        front half as a chunk step, dedup, the second compaction, the
+        append to the level ring and, when the chunk drains the
+        frontier, the level's commit (stats, archives, the ring
+        swap).  Any overflow bails: this chunk's inserts and the
+        level's earlier ones (the ring journal) are cleared and the
+        pre-level frontier is kept.  When the condition is false the
+        iteration changes nothing, so the host may run it past the
+        loop's end.  Reads nothing back."""
+        B, A, FCAP, dev = self.chunk, self.A, self.FCAP, self.device
+        KB, L = self._burst_width(), self.burst_levels
+        OC = min(self.OCAP, KB)
+        run = ~r.bail & ~r.viol & (r.li < r.lv_left) & (r.nf > 0) & \
+            (r.done < r.st_cap)
+        rows = r.base + torch.arange(B, device=dev)
+        win = rows.clamp(max=KB - 1)
+        sv = self.ir.widen({k: v.index_select(-1, win)
+                            for k, v in r.fr.items()})
+        valid = r.fm.index_select(0, win) & (rows < r.nf) & run
+        cand, elive, keys, lanes, counts, n_e, n_hard = \
+            self._expand_fp_chunk(sv, valid, FCAP)
+        # overflows known before the launch: nothing is inserted
+        bail = (n_e > FCAP) | (counts > self._caps_t()).any()
+        if n_hard is not None:
+            nh = n_hard.long()
+            bail = bail | (nh > self.HCAP)
+        fresh, pos, hv = probe_claim_insert(st.vis, keys, elive & ~bail)
+        n_fresh = fresh.sum()
+        # the probe budget, the ring outgrown, fresh rows past OC
+        bail = bail | hv | (r.nl + n_fresh > KB) | (n_fresh > OC)
+        # bail: the level never happened
+        self._clear_slots(
+            st, torch.cat([pos, r.jsl[:KB]]),
+            torch.cat([fresh, torch.arange(KB, device=dev) < r.nl]) & bail)
+        fresh = fresh & ~bail
+        n_fresh = torch.where(bail, 0, n_fresh)
+        gl2 = r.gl + torch.where(bail, 0, n_e.clamp(max=FCAP))
+        nl2 = r.nl + n_fresh
+        # the second compaction, then the ring append at nl (rows past
+        # n_fresh go to the spare column)
+        oidx = self._compact(fresh, OC)
+        rows_f = {k: v.index_select(-1, oidx) for k, v in cand.items()}
+        inv, con = self._phase2_T(rows_f)
+        rows_n = self.ir.narrow(self.lay, rows_f)
+        oar = torch.arange(OC, device=dev)
+        rpos = torch.where(oar < n_fresh, r.nl + oar, KB)
+        for k, v in r.lv.items():
+            v.index_copy_(v.dim() - 1, rpos, rows_n[k])
+        take = lanes[oidx]
+        par_row = (r.base + take // A).clamp(0, KB - 1)
+        r.lvp.index_copy_(0, rpos, r.gd[par_row].to(torch.int32))
+        r.lvlane.index_copy_(0, rpos, (take % A).to(torch.int32))
+        r.jsl.index_copy_(0, rpos, pos.index_select(0, oidx))
+        r.lin.index_copy_(1, rpos, inv)
+        r.lco.index_copy_(0, rpos, con)
+        # the level's commit, predicated (a mid-level chunk, a bail or a
+        # finished loop leaves the frontier and the archives as they
+        # are: their writes go to the spare row)
+        new_base = r.base + B
+        done = run & ~bail & (new_base >= r.nf)
+        validrow = torch.arange(KB, device=dev) < nl2
+        inv_ok = r.lin[:, :KB] | ~validrow
+        n_viol = (~inv_ok).sum()
+        faults = ((r.lv["ctr"][C_OVERFLOW, :KB] > 0) & validrow).sum()
+        n_expand = (r.lco[:KB] & validrow).sum()
+        at = torch.where(done, r.li, L).reshape(1)
+        r.stats.index_copy_(0, at, torch.cat([
+            torch.stack([nl2, n_viol, faults, n_expand, gl2]),
+            nl2.new_zeros(3)])[None])
+        r.opar.index_copy_(0, at, r.lvp[None, :KB])
+        r.olane.index_copy_(0, at, r.lvlane[None, :KB])
+        for k, v in r.ost.items():
+            v.index_copy_(v.dim() - 2, at, r.lv[k][..., None, :KB])
+        r.oinv.index_copy_(1, at, inv_ok[:, None])
+        if n_hard is not None:
+            hl = _hard_add(r.hard_l, torch.where(bail, 0, nh))
+            hc = torch.stack([r.hard[0] + hl[0], r.hard[1] + hl[1],
+                              torch.maximum(r.hard[2], hl[2])])
+            r.hard.copy_(torch.where(done, hc, r.hard))
+            r.hard_l.copy_(torch.where(done, 0, hl))
+        # the ring swap at a level boundary; rows past nl2 are stale
+        # but masked by nf and fm
+        for k, v in r.fr.items():
+            v.copy_(torch.where(done, r.lv[k][..., :KB], v))
+        r.fm.copy_(torch.where(done, r.lco[:KB] & validrow, r.fm))
+        r.nf.copy_(torch.where(done, nl2, r.nf))
+        r.gd.copy_(torch.where(done, r.g + torch.arange(KB, device=dev),
+                               r.gd))
+        r.pg.copy_(torch.where(done, r.g, r.pg))
+        r.g += torch.where(done, nl2, 0)
+        r.done += torch.where(done, nl2, 0)
+        r.li += done
+        r.base.copy_(torch.where(run, torch.where(done, 0, new_base),
+                                 r.base))
+        r.nl.copy_(torch.where(done, 0, nl2))
+        r.gl.copy_(torch.where(done, 0, gl2))
+        r.bail |= bail
+        r.viol |= done & (n_viol > 0)
+
+    def _burst(self, st: _Level, r: _Ring, lv_left: int, st_cap: int):
+        """One burst dispatch from the level state's frontier: up to
+        ``lv_left`` levels (and to ``st_cap`` new states) while the
+        frontier fits the ring.  The host runs the body k iterations at
+        a time, k the chunks left in the ring's current level, and
+        reads the loop state once per k.  Returns (the meta row
+        [levels done, bail, n_front, viol_any, states done], the stats
+        rows [levels, 8] as numpy)."""
+        B, KB, L = self.chunk, self._burst_width(), self.burst_levels
+        for k, v in st.front.items():
+            r.fr[k].copy_(v[..., :KB])
+        r.fm.copy_(st.fmask[:KB])
+        torch.add(torch.arange(KB, device=self.device), st.pg_off,
+                  out=r.gd)
+        r.nf.copy_(st.n_front)
+        r.g.copy_(st.g_off)
+        r.pg.copy_(st.pg_off)
+        for t in (r.base, r.nl, r.gl, r.li, r.done, r.bail, r.viol, r.hard,
+                  r.hard_l):
+            t.zero_()
+        r.lv_left.fill_(lv_left)
+        r.st_cap.fill_(st_cap)
+        key = self._graph_key("burst", st)
+        nf, base = st.n_front_h, 0
+        while True:
+            for _ in range(max(1, -(-(nf - base) // B))):
+                self._graphs.run(key, lambda: self._burst_body(st, r))
+            got = torch.cat([
+                torch.stack([r.li, r.bail.long(), r.nf, r.viol.long(),
+                             r.done, r.base]),
+                r.hard, r.stats[:L].reshape(-1)]).tolist()
+            li, bail, nf, viol, done, base = got[:6]
+            if bail or viol or li >= lv_left or nf == 0 or done >= st_cap:
+                break
+        # paste the surviving frontier back
+        st.fmask.zero_()
+        st.fmask[:KB] = r.fm
+        for k, v in st.front.items():
+            v[..., :KB] = r.fr[k]
+        st.n_front.copy_(r.nf)
+        st.n_front_h = nf
+        st.g_off.copy_(r.g)
+        st.pg_off.copy_(r.pg)
+        h, hb = self.hard_stats, got[6:9]
+        self.hard_stats = [h[0] + hb[0], h[1] + hb[1], max(h[2], hb[2])]
+        return got[:5], np.asarray(got[9:], np.int64).reshape(L, 8)
 
     # ------------------------------------------------------------------
 
@@ -474,11 +782,11 @@ class Engine:
         first.sort()
         return take_arrays(roots, first), rk[first]
 
-    def _archive_level(self, st: _Level, n_lvl: int):
-        self._parents.append(st.lpar[:n_lvl].cpu().numpy().copy())
-        self._lanes.append(st.llane[:n_lvl].cpu().numpy().copy())
-        self._states.append(rows_to_numpy(
-            {k: v[..., :n_lvl] for k, v in st.front.items()}))
+    def _archive_level(self, parents: np.ndarray, lanes: np.ndarray,
+                       states: Dict[str, np.ndarray]):
+        self._parents.append(parents)
+        self._lanes.append(lanes)
+        self._states.append(states)
 
     def check(self, max_depth: int = 10 ** 9, max_states: int = 10 ** 9,
               stop_on_violation: bool = False,
@@ -486,6 +794,7 @@ class Engine:
         t0 = time.perf_counter()
         self._states, self._parents, self._lanes = [], [], []
         self.hard_stats = [0, 0, 0]
+        self._graphs = GraphRunner(self.device, self._capture)
         roots, rk = self._dedup_roots()
         n_roots = len(rk)
         res = CheckResult(generated_states=n_roots)
@@ -494,9 +803,8 @@ class Engine:
         while n_roots + self.LCAP - self.OCAP > \
                 self._LOAD_MAX * self.VCAP:
             self.VCAP *= 4
-        vis = torch.full((self.W, self.VCAP), EMPTY, dtype=torch.int32,
-                         device=self.device)
-        st = _Level(self, self.LCAP, vis)
+        st = _Level(self, self.LCAP, self._new_table(self.VCAP))
+        ring = None
         # roots enter through the same admit path as every level: host
         # placement into the empty table, then finalize
         rows = rows_to_torch(roots, self.device)
@@ -507,7 +815,7 @@ class Engine:
             self.device)
         st.vis[:, slots.long()] = words_to_torch(rk.T, self.device)
         st.jslot[:n_roots] = slots
-        st.n_lvl = n_roots
+        st.n_lvl.fill_(n_roots)
         inv_r, con_r = self._phase2_T(rows)
         st.linv[:, :n_roots] = inv_r
         st.lcon[:n_roots] = con_r
@@ -515,13 +823,15 @@ class Engine:
         n_vis = 0
         depth = 0
 
-        def grow_table_if_needed(st):
+        def grow_table_if_needed(st, min_add=0):
             # pessimistic load bound: a level adds at most LCAP - OCAP
-            need = n_vis + st.lcap - self.OCAP
+            # keys (a burst up to min_add)
+            need = n_vis + max(st.lcap - self.OCAP, min_add)
             if need > self._LOAD_MAX * self.VCAP:
                 while need > self._LOAD_MAX * self.VCAP:
                     self.VCAP *= 4
-                st.vis = self._rehash_tables(st.vis, self.VCAP)
+                st.set_table(self._rehash_tables(st.vis, self.VCAP))
+                self._graphs.clear()
 
         def harvest(st, scal, inv_ok):
             nonlocal n_states, n_vis
@@ -530,11 +840,15 @@ class Engine:
             res.overflow_faults += faults
             res.generated_states += scal[6]
             res.violations_global += n_viol
-            if self.store_states:
-                self._archive_level(st, n_lvl)
-            if n_viol:
+            rows = None
+            if self.store_states or n_viol:
                 rows = rows_to_numpy({k: v[..., :n_lvl]
                                      for k, v in st.front.items()})
+            if self.store_states:
+                self._archive_level(st.lpar[:n_lvl].cpu().numpy().copy(),
+                                    st.llane[:n_lvl].cpu().numpy().copy(),
+                                    rows)
+            if n_viol:
                 bad = (~inv_ok).cpu().numpy()
                 for j, nm in enumerate(self.inv_names):
                     for s in np.nonzero(bad[j])[0]:
@@ -546,20 +860,74 @@ class Engine:
             n_states += n_lvl
             n_vis += n_lvl
             driver.guard_id_space(n_states)
-            return st.n_front
+            return st.n_front_h
+
+        def harvest_burst(meta, stats, r):
+            nonlocal n_states, depth
+            arch = None
+            if self.store_states or meta[3]:
+                arch = (r.opar.cpu().numpy(), r.olane.cpu().numpy(),
+                        arrays_to_numpy(r.ost), r.oinv.cpu().numpy())
+
+            def archive(li, n_lvl):
+                if self.store_states:
+                    self._archive_level(*driver.burst_archive_slice(
+                        arch[0], arch[1], arch[2], li, n_lvl))
+
+            def violations(li, n_lvl, gid_base):
+                driver.burst_decode_violations(
+                    res, self.ir, self.lay, self.inv_names, arch[3],
+                    arch[2], li, n_lvl, gid_base)
+
+            def visited(li, n_lvl):
+                nonlocal n_vis
+                n_vis += n_lvl
+
+            depth, n_states = driver.harvest_fused_levels(
+                res, meta[0], lambda li: stats[li, :5], depth, n_states,
+                archive=archive, violations=violations, visited=visited)
 
         scal, inv_ok = self._finalize(st)
         n_front = harvest(st, scal, inv_ok)
+        # a burst that committed levels and then bailed keeps the
+        # bailing level's frontier: re-entering would bail again, so
+        # that level runs on the per-level path, which re-arms the burst
+        burst_ok = True
         while n_front and depth < max_depth and \
                 res.distinct_states < max_states and \
                 not (stop_on_violation and res.violations):
+            if self.burst and burst_ok and \
+                    n_front <= self._burst_width():
+                t1 = time.perf_counter()
+                grow_table_if_needed(
+                    st, min_add=self.burst_levels * self._burst_width())
+                if ring is None:
+                    ring = _Ring(self, st)
+                meta, stats = self._burst(
+                    st, ring, min(self.burst_levels, max_depth - depth),
+                    max(1, min(max_states - res.distinct_states,
+                               2 ** 31 - 1)))
+                res.burst_dispatches += 1
+                res.burst_bailouts += meta[1]
+                if meta[0]:
+                    burst_ok = not meta[1]
+                    n_front = meta[2]
+                    harvest_burst(meta, stats, ring)
+                    if verbose:
+                        print(f"burst: {meta[0]} levels to depth {depth} "
+                              f"(total {res.distinct_states}), frontier "
+                              f"{n_front}, "
+                              f"{time.perf_counter() - t1:.2f}s")
+                    continue
+            burst_ok = True
             depth += 1
             t1 = time.perf_counter()
             grow_table_if_needed(st)
             while True:
                 n_chunks = (n_front + self.chunk - 1) // self.chunk
+                key = self._graph_key("step", st)
                 for _ in range(n_chunks):
-                    self._chunk_step(st)
+                    self._graphs.run(key, lambda: self._chunk_step(st))
                 scal, inv_ok = self._finalize(st)
                 ovf, fovf, hovf, oovf = (bool(scal[4]), bool(scal[5]),
                                          bool(scal[8]), bool(scal[9]))
@@ -568,6 +936,7 @@ class Engine:
                     break
                 # overflow: the table was rolled back and the frontier
                 # kept, so grow and replay the level exactly
+                self._graphs.clear()
                 old_caps = (self.LCAP, self.FCAP, self.OCAP)
                 if oovf:
                     self.OCAP = self._round_cap(
@@ -597,7 +966,7 @@ class Engine:
                 if hovf:
                     # probe walk blew its round budget: table too full
                     self.VCAP *= 4
-                    st.vis = self._rehash_tables(st.vis, self.VCAP)
+                    st.set_table(self._rehash_tables(st.vis, self.VCAP))
                 if verbose:
                     print(f"level {depth}: buffer overflow (ovf={ovf} "
                           f"fovf={fovf} hovf={hovf} oovf={oovf} "
@@ -622,6 +991,8 @@ class Engine:
             self.hard_stats
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # the graphs hold their buffers' memory: drop them with the run
+        self._graphs.clear()
         res.seconds = time.perf_counter() - t0
         return res
 

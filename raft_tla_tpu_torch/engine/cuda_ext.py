@@ -92,6 +92,13 @@ def library() -> ctypes.CDLL:
 def _scratch(device: torch.device, vcap: int):
     got = _claim_scratch.get((device, vcap))
     if got is None:
+        # a capture would fold the owner words' reset into every replay
+        # and keep the buffers in the graph's pool: an uncaptured launch
+        # (the warm-up) must come first
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("probe_claim scratch for VCAP "
+                               f"{vcap} first met inside a CUDA graph "
+                               "capture: launch once uncaptured first")
         got = (torch.full((2, vcap), -1, dtype=torch.int64, device=device),
                torch.zeros(4, dtype=torch.int32, device=device))
         _claim_scratch[(device, vcap)] = got

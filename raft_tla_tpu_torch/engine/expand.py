@@ -460,14 +460,6 @@ class Expander:
             acc = phi.T @ self._W32
         return acc == self._T[None, :]
 
-    def family_counts(self, okf: torch.Tensor) -> torch.Tensor:
-        """Flat enabled mask [B*A] -> int32 [n_fams] enabled counts
-        (``materialize``'s counts, without the materialization)."""
-        per_lane = okf.view(-1, self.n_lanes).sum(0, dtype=I32)
-        return torch.zeros(len(self.families), dtype=I32,
-                           device=okf.device).index_add_(
-            0, self._fam_of, per_lane)
-
     # ---- fixed-width materialization ---------------------------------
 
     def _plan(self, B: int, fam_caps):

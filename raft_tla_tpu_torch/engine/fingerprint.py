@@ -947,12 +947,16 @@ MAX_PROBE_ROUNDS = 4096
 class LaunchCounter:
     """Counts the kernel launches a wrapper makes (never the plain
     twin's calls): ``chip_smoke.py`` zeroes it before a run and reads
-    it after, to show the run went through the kernel.  With
-    ``timing`` on, each launch is bracketed by CUDA events and its
+    it after, to show the run went through the kernel.  A launch made
+    while a CUDA graph is being captured runs nothing: it adds to
+    ``captured`` instead, and ``graph.GraphRunner`` adds each graph's
+    share to ``count`` at every replay.  With ``timing`` on, each
+    launch outside a capture is bracketed by CUDA events and its
     device scalars (claim rounds, error word) are kept, with no
     synchronisation; ``total_ms`` and ``rounds`` read them afterwards."""
 
     def __init__(self):
+        self.captured = 0
         self.reset()
 
     def reset(self, timing: bool = False):
@@ -1136,12 +1140,17 @@ def probe_claim_insert(table: torch.Tensor, keys: torch.Tensor,
                        max_rounds: int = MAX_PROBE_ROUNDS):
     """Claim-insert ``keys`` into ``table`` (in place).  On a CUDA
     table this launches the hand-written kernel (csrc/probe_claim.cu)
-    and counts the launch; on a CPU table it runs the plain twin.
+    and counts the launch (inside a graph capture: tallies it for the
+    replays); on a CPU table it runs the plain twin.
     Returns (fresh bool [M], pos int32 [M], hovf bool 0-d)."""
     if table.device.type == "cpu":
         return probe_claim_insert_plain(table, keys, live, max_rounds)
     from .cuda_ext import probe_claim_launch
     ctr = PROBE_CLAIM_LAUNCHES
+    if torch.cuda.is_current_stream_capturing():
+        out = probe_claim_launch(table, keys, live, max_rounds)
+        ctr.captured += 1
+        return out[:3]
     if ctr.timing:
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))

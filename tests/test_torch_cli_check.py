@@ -1,20 +1,61 @@
 """The port's ``check`` prints the reference CLI's violation text: the
 same numbered steps with their states, after the stats line, and the
 same exit code (both CLIs in this process, on the micro cfg of
-``test_torch_cli.py`` with FirstCommit among its invariants)."""
+``test_torch_cli.py`` with FirstCommit among its invariants), here
+with ``--no-burst`` on both, and the same counts and burst keys in
+``--stats-json``; ``test_torch_cli_burst.py`` holds the same with the
+burst on (one reference engine compile per file).  ``--burst-levels
+0`` is refused with the reference's message and exit 2."""
+
+import json
 
 import torch
 
-from test_torch_cli import FLAGS, _both, cfgs  # noqa: F401
+from test_torch_cli import FLAGS, _run, cfgs  # noqa: F401
 
 torch.set_num_threads(1)
 
+KEYS = ("distinct_states", "generated_states", "depth", "violations",
+        "levels_fused", "burst_dispatches", "burst_bailouts")
 
-def test_check_prints_the_reference_violation_text(cfgs, capsys):
-    got, want = _both(["check", cfgs[1]] + FLAGS, capsys,
-                      ref_extra=["--no-burst"])
+
+def _both_stats(argv, capsys, tmp_path):
+    """(rc, stdout, stats) of the port's and the reference's check."""
+    from raft_tla_tpu.cli import main as jmain
+    from raft_tla_tpu_torch.cli import main as tmain
+    out = []
+    for name, main, extra in (("port", tmain, ["--device", "cpu"]),
+                              ("ref", jmain, [])):
+        path = tmp_path / f"{name}.json"
+        rc, text, _err = _run(main, argv + extra +
+                              ["--stats-json", str(path)], capsys)
+        out.append((rc, text, json.loads(path.read_text())))
+    return out
+
+
+def _same_report(got, want):
     assert got[0] == want[0] == 1
     # the stats line differs in its keys; everything after it is equal
     assert got[1].split("\n", 1)[1] == want[1].split("\n", 1)[1]
     assert "\nViolation 0: invariant FirstCommit\n" in got[1]
     assert "       State(ct=" in got[1]
+    assert {k: got[2][k] for k in KEYS} == {k: want[2][k] for k in KEYS}
+
+
+def test_check_prints_the_reference_violation_text(cfgs, capsys,
+                                                     tmp_path):
+    got, want = _both_stats(["check", cfgs[1], "--no-burst"] + FLAGS,
+                            capsys, tmp_path)
+    _same_report(got, want)
+    assert got[2]["levels_fused"] == got[2]["burst_dispatches"] == 0
+
+
+def test_burst_levels_must_be_positive(cfgs, capsys):
+    from raft_tla_tpu.cli import main as jmain
+    from raft_tla_tpu_torch.cli import main as tmain
+    argv = ["check", cfgs[1], "--burst-levels", "0"] + FLAGS
+    got = _run(tmain, argv + ["--device", "cpu"], capsys)
+    want = _run(jmain, argv, capsys)
+    assert got[0] == want[0] == 2
+    assert got[2] == want[2]
+    assert got[2].startswith("--burst-levels must be positive (got 0)")

@@ -240,3 +240,152 @@ def test_delta_group_on_the_card(cuda, skip):
         assert torch.equal(fp, ref[2]), key
         for k in cand:
             assert torch.equal(cand[k], ref[0][k]), (key, k)
+
+
+def test_captured_probe_claim_replays_equal_eager_launches(cuda):
+    """Stream capture takes the kernel's cooperative launch: one
+    captured launch, replayed twice with new keys in its input buffer,
+    gives the tables and outputs of two eager launches, and each
+    replay counts as one launch."""
+    from raft_tla_tpu_torch.engine.graph import GraphRunner
+    rng = np.random.RandomState(7)
+    W, vcap, M = 2, 1 << 12, 512
+    batches = [cvt.words_to_torch(_keys(rng, M, W), cuda) for _ in range(3)]
+    batches[2][:, :64] = batches[1][:, :64]       # duplicates across
+    live = torch.from_numpy(rng.rand(M) > 0.1).to(cuda)
+    table = torch.full((W, vcap), -1, dtype=torch.int32, device=cuda)
+    eager = table.clone()
+    keys = batches[0].clone()
+    # the step's outputs land in persistent buffers, as the engine's do
+    fresh = torch.zeros(M, dtype=torch.bool, device=cuda)
+    pos = torch.zeros(M, dtype=torch.int32, device=cuda)
+    hovf = torch.zeros((), dtype=torch.bool, device=cuda)
+
+    def step():
+        for buf, t in zip((fresh, pos, hovf),
+                          probe_claim_insert(table, keys, live)):
+            buf.copy_(t)
+
+    runner = GraphRunner(cuda)
+    PROBE_CLAIM_LAUNCHES.reset()
+    for i, b in enumerate(batches):
+        keys.copy_(b)
+        runner.run("k", step)     # the first: warm-up, then the capture
+        f, p, h = probe_claim_insert(eager, b, live)
+        torch.cuda.synchronize()
+        assert torch.equal(table, eager), i
+        assert torch.equal(fresh, f) and torch.equal(pos, p), i
+        assert bool(hovf) == bool(h)
+    assert runner.captures == 1 and runner.replays == 2
+    assert PROBE_CLAIM_LAUNCHES.count == 3 + 3    # eager 3, graph 1 + 2
+    # dropped graphs (a cap grew): the next call warms up and captures
+    # anew, into a new pool
+    runner.clear()
+    keys.copy_(batches[0])
+    runner.run("k", step)
+    f, p, h = probe_claim_insert(eager, batches[0], live)
+    runner.run("k", step)
+    f, p, h = probe_claim_insert(eager, batches[0], live)
+    torch.cuda.synchronize()
+    assert torch.equal(table, eager) and torch.equal(pos, p)
+    assert runner.captures == 2 and runner.replays == 3
+
+
+def _config1():
+    import os
+    import chip_smoke as cs
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return cs, load_model(os.path.join(
+        here, "configs/tlc_membership/raft.cfg"),
+        bounds=Bounds.make(**cs.CONFIG1_BOUNDS))
+
+
+def _archives(eng):
+    return (eng._parents, eng._lanes, eng._states)
+
+
+def _same_archives(a, b):
+    for x, y in zip(_archives(a), _archives(b)):
+        assert len(x) == len(y)
+        for u, v in zip(x, y):
+            if isinstance(u, dict):
+                assert all(np.array_equal(u[k], v[k]) for k in u)
+            else:
+                assert np.array_equal(u, v)
+
+
+def test_captured_chunk_step_equals_the_eager_step(cuda):
+    """Config #1 to depth 14 on the per-level path: every chunk step a
+    graph replay against every chunk step eager, bit for bit."""
+    cs, cfg = _config1()
+    runs = {}
+    for capture in (True, False):
+        eng = Engine(cfg, burst=False, device="cuda", **cs.CONFIG1_ENGINE)
+        eng._capture = capture
+        res = eng.check(max_depth=14)
+        runs[capture] = (eng, res)
+    (g, rg), (e, re_) = runs[True], runs[False]
+    assert rg.level_sizes == re_.level_sizes == cs.CONFIG1_LEVEL_SIZES[:14]
+    assert (rg.distinct_states, rg.generated_states) == \
+        (re_.distinct_states, re_.generated_states)
+    assert g._graphs.replays > 0 and e._graphs.replays == 0
+    _same_archives(g, e)
+
+
+def test_replays_and_eager_steps_do_not_synchronize(cuda, monkeypatch):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` every graph
+    replay, and every eager chunk step and burst iteration after the
+    first for its graph key (the warm-up, which copies in the constants
+    it caches), runs without a host synchronisation; the captures, the
+    finalize's read and the burst's reads between iterations stay
+    outside the mode."""
+    from raft_tla_tpu_torch.engine import graph
+    cs, cfg = _config1()
+
+    def strict(fn, *a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    run = graph.GraphRunner.run
+
+    def run_strict(self, key, fn):
+        if self.capture and key in self._graphs:
+            return strict(run, self, key, fn)
+        if not self.capture and key in self._graphs:
+            return strict(fn)
+        self._graphs.setdefault(key, None)     # eager: the warm-up
+        return run(self, key, fn)
+    monkeypatch.setattr(graph.GraphRunner, "run", run_strict)
+    out = []
+    for capture in (False, True):
+        eng = Engine(cfg, device="cuda", **cs.CONFIG1_ENGINE)
+        eng._capture = capture
+        res = eng.check(max_depth=16)
+        assert res.levels_fused > 0
+        out.append((res.distinct_states, res.level_sizes))
+    assert out[0] == out[1]
+    assert out[0][1] == cs.CONFIG1_LEVEL_SIZES[:16]
+
+
+def test_burst_on_the_card_equals_the_cpu(cuda):
+    """tests/test_burst.py's MICRO: the fused path (captured on the
+    card) gives the CPU's counters and archives, a ring bail included."""
+    cfg = ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
+                      max_inflight_override=4, symmetry=True,
+                      bounds=Bounds.make(max_log_length=1, max_timeouts=1,
+                                         max_client_requests=1))
+    runs = []
+    for dev in ("cuda", "cpu"):
+        eng = Engine(cfg, chunk=64, device=dev)
+        res = eng.check(max_depth=16)
+        runs.append((eng, (res.distinct_states, res.generated_states,
+                           res.level_sizes, res.levels_fused,
+                           res.burst_dispatches, res.burst_bailouts)))
+    assert runs[0][1] == runs[1][1]
+    assert runs[0][1][3] > 0 and runs[0][1][5] > 0
+    assert runs[0][0]._graphs.replays > 0
+    _same_archives(runs[0][0], runs[1][0])

@@ -3,24 +3,30 @@
     python tools/torch_profile.py [--config 1|5] [--max-depth 17]
                                   [--incremental-fp 0|1] [--hcap N]
                                   [--no-guard-matmul] [--no-delta-matmul]
+                                  [--no-burst] [--eager]
                                   [--no-profile] [--out FILE]
 
 Runs BASELINE config #1 or #5 (the chip_smoke.py configurations and
 capacities) through ``raft_tla_tpu_torch`` on the CUDA device, in the
-engine's default fingerprint mode and expansion unless
-``--incremental-fp 0`` turns the incremental path off and
+engine's defaults (the burst, each chunk step and burst iteration a
+captured CUDA graph, the default fingerprint mode and expansion)
+unless ``--incremental-fp 0`` turns the incremental path off,
 ``--no-guard-matmul`` / ``--no-delta-matmul`` the guard product / the
-delta group: once plain, for the wall time, and once under
-``torch.profiler`` (CPU + CUDA activities), for the device time per
-kernel name and the device launches per chunk step (``--no-profile``
-skips this run: the profiler's summary takes minutes past ~10^5
-launches).  Prints one JSON object: the card, the run's counts, wall
-seconds, the dedup kernel's launches (one per chunk step) and event
-time, the hard lanes of the orbit-sort fallback, the device-busy
-total, the idle share of the plain run's wall, the device launches per
-chunk step, and the top kernels by device time.  A depth cut keeps the
-profiler's trace small; the runs explore the same levels (a first,
-unmeasured run warms the allocator).
+delta group, ``--no-burst`` the burst, and ``--eager`` the capture
+(the engine's private ``_capture``): once plain, for the wall time
+(its captures included), and once under ``torch.profiler`` (CPU +
+CUDA activities), for the device time per kernel name
+(``--no-profile`` skips this run: the profiler's summary takes
+minutes past ~10^5 launches).  Prints one JSON object: the card, the
+run's counts, the wall, the burst counters, the graphs captured and
+replayed, the dedup kernel's launches (one per chunk step or burst
+iteration) and, eager, their event time, the hard lanes of the
+orbit-sort fallback, the device-busy total, the idle share of the
+plain run's wall, the device kernels and the host's launch calls
+(kernel launches and graph launches, by runtime call) per chunk step,
+and the top kernels by device time.  A depth cut keeps the profiler's trace small; the runs
+explore the same levels (a first, unmeasured run warms the allocator
+and builds the kernels).
 """
 
 import argparse
@@ -45,6 +51,11 @@ def main(argv=None):
                     default=True)
     ap.add_argument("--delta-matmul", action=argparse.BooleanOptionalAction,
                     default=True)
+    ap.add_argument("--burst", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the chunk step and the burst body "
+                         "uncaptured")
     ap.add_argument("--profile", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--top", type=int, default=15)
@@ -81,22 +92,26 @@ def main(argv=None):
         eng = Engine(cfg, store_states=False, device="cuda",
                      incremental_fp=bool(args.incremental_fp),
                      guard_matmul=args.guard_matmul,
-                     delta_matmul=args.delta_matmul, **engine_kw)
+                     delta_matmul=args.delta_matmul, burst=args.burst,
+                     **engine_kw)
+        eng._capture = not args.eager
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = eng.check(max_depth=args.max_depth, max_states=budget)
         return res, time.perf_counter() - t0, eng
 
     run()                                  # warm-up: allocator, kernels
-    fp.PROBE_CLAIM_LAUNCHES.reset(timing=True)
+    fp.PROBE_CLAIM_LAUNCHES.reset(timing=args.eager)
     res, wall, eng = run()
     launches = fp.PROBE_CLAIM_LAUNCHES.count
-    dedup_ms = fp.PROBE_CLAIM_LAUNCHES.total_ms()
+    dedup_ms = fp.PROBE_CLAIM_LAUNCHES.total_ms() if args.eager else None
     fp.PROBE_CLAIM_LAUNCHES.reset()
     out = {
         "card": card,
         "config": args.config,
         "max_depth": args.max_depth,
+        "burst": args.burst,
+        "captured": not args.eager,
         "sym_canon": res.sym_canon,
         "incremental_fp": eng.incremental_fp and
         eng.fpr.supports_incremental(),
@@ -107,6 +122,11 @@ def main(argv=None):
         "depth": res.depth,
         "wall_s": wall,
         "states_per_s": res.distinct_states / wall,
+        "levels_fused": res.levels_fused,
+        "burst_dispatches": res.burst_dispatches,
+        "burst_bailouts": res.burst_bailouts,
+        "graph_captures": eng._graphs.captures,
+        "graph_replays": eng._graphs.replays,
         "dedup_launches": launches,
         "dedup_event_ms": dedup_ms,
         "hcap_initial": engine_kw.get("hcap"),
@@ -123,9 +143,12 @@ def main(argv=None):
         steps = fp.PROBE_CLAIM_LAUNCHES.count
         # device-side events only (the kernels): an operator's row
         # repeats the device time of the kernels it launched
-        rows = []
+        rows, calls = [], {}
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
+                # the host's launch calls into the runtime
+                if "Launch" in e.key and e.key.startswith("cu"):
+                    calls[e.key] = e.count
                 continue
             dev_us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
@@ -143,6 +166,9 @@ def main(argv=None):
             "device_launches": n_launch,
             "chunk_steps": steps,
             "launches_per_chunk": n_launch / max(steps, 1),
+            "host_launch_calls": calls,
+            "host_launch_calls_per_chunk":
+                sum(calls.values()) / max(steps, 1),
             "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
                              "calls": n} for us, k, n in rows[:args.top]],
         })
