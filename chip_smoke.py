@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the final line):
      (g) the all-ones key among dead lanes — table, fresh, pos and hovf
      must be equal, two launches must give the same outputs, and the
      kernel's claim rounds must equal the CPU model's
-     (``probe_claim_insert_rounds``); (d) and (f) are timed;
+     (``probe_claim_insert_rounds``); (d) and (f) are timed; then (b),
+     (c), (d) and (g) again with ``fp128``'s 4-word keys, (d) timed;
   4. the main path: ``Engine(config #1).check(max_states=2_000_000)``
      on the card, in the engine's defaults (the burst for the small
      levels, each chunk step and burst iteration a captured CUDA graph,
@@ -45,17 +46,35 @@ Phases (any failure exits non-zero before the final line):
      per-level path: archives (parents, lanes, states) and counts bit
      for bit, the walls timed in turns (eager, graph, graph, eager);
      the eager runs time each dedup launch with CUDA events (a capture
-     holds no timing event), which gives the kernel's main-path time.
+     holds no timing event), which gives the kernel's main-path time;
+  9. config #1 as in phase 4 with ``fp128=True`` (4-word dedup keys):
+     the same answer;
+ 10. the punctuated search, through the CLI in this process: (a) ``check
+     --keep-going`` to depth 11 of the tlc cfg with its upstream pin
+     lines enabled (prefix pin, action constraint, invariant) must give
+     the reference's distinct states, level sizes, interior states,
+     violations and first witness, and the CPU to depth 8 the card's
+     first levels; (b) ``trace --emit-seed`` and ``check --seed-trace
+     --action-constraint`` without pins give the same exit codes,
+     witness, seed file and stats on the card and on the CPU;
+ 11. BASELINE config #3 (NextDynamic, Server=4 over InitServer=3, the
+     membership invariant) with the reference's 1,500,000-state budget
+     must give 2,875,461 distinct states, depth 17, no violation and the
+     reference's level sizes, with no level replayed for LCAP.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
 result when CUDA is absent or the package is not beside this script.
 """
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # BASELINE config #1 (tools/measure_baseline.py: build_cfg(1), BUDGET,
@@ -104,6 +123,65 @@ CONFIG5_ENGINE = dict(chunk=2048, lcap=1 << 20, vcap=1 << 23, ocap=1 << 14,
 # max_states=600_000) -> 937,554 distinct, depth 20, 0 violations.
 CONFIG5_LEVEL_SIZES = [1, 2, 4, 8, 15, 25, 41, 65, 100, 149, 218, 311, 438,
                        612, 900, 1668, 4877, 20276, 92622, 413567]
+# The punctuated search of phase 10: configs/tlc_membership/raft.cfg with
+# the upstream pin lines enabled (CommitWhenConcurrentLeaders_unique under
+# CONSTRAINTS, CommitWhenConcurrentLeaders_action_constraint under
+# ACTION_CONSTRAINTS, CommitWhenConcurrentLeaders first under INVARIANTS)
+# at these bounds, with the capacities of phase 4.
+PIN_BOUNDS = dict(max_log_length=1, max_timeouts=1, max_restarts=0,
+                  max_client_requests=2, max_terms=4)
+PIN_FLAGS = [a for k, v in PIN_BOUNDS.items()
+             for a in ("--" + k.replace("_", "-"), str(v))]
+CAP_FLAGS = ["--chunk", "2048", "--lcap", str(1 << 21), "--vcap",
+             str(1 << 24), "--ocap", str(1 << 14)]
+ACT = "CommitWhenConcurrentLeaders_action_constraint"
+PINNED_DEPTH = 11
+# Its answer to depth 11, from the JAX package's Engine on a CPU
+# (JAX_PLATFORMS=cpu): Engine(that cfg, chunk=2048, burst=False,
+# store_states=True, lcap=2^21, vcap=2^24, ocap=2^14).check(max_depth=11,
+# stop_on_violation=False): distinct and generated states, post-constraint
+# level sizes, the distinct interior states of the pinned prefix, the
+# CommitWhenConcurrentLeaders violations (every one), the first one's
+# state id and its trace from the seed.
+PINNED_DISTINCT, PINNED_GENERATED = 2_228_245, 4_922_060
+PINNED_LEVEL_SIZES = [8, 42, 175, 621, 1946, 5526, 14479, 35520, 82529,
+                      183369, 392763]
+PINNED_INTERIOR, PINNED_VIOLATIONS = 18, 4966
+PINNED_FIRST_GID = 97120
+PINNED_FIRST_TRACE = ["Init", "ClientRequest(1,1)", "AppendEntries(1,2)",
+                      "Receive[slot0]", "Receive[slot0]", "Receive[slot0]",
+                      "AdvanceCommitIndex(1)", "AppendEntries(1,0)",
+                      "AppendEntries(1,0)"]
+# the CPU holds the card's first levels of it to this depth
+PINNED_CPU_DEPTH = 8
+# the two-command form: ``trace --emit-seed`` for this target at the same
+# bounds without pins, then ``check --seed-trace`` to this depth.
+# ConcurrentLeaders is out of reach in seconds on the CPU at these
+# bounds (a CPU trace ran past two minutes without a witness), and so is
+# LeadershipChange; FirstCommit is the deepest scenario target the CPU
+# reaches in seconds (depth 15, 41,656 states).
+SEED_TARGET, SEED_CHECK_DEPTH = "FirstCommit", 12
+# BASELINE config #3, the membership workload (tools/measure_baseline.py:
+# build_cfg(3), BUDGET[3]) and its answer (baseline_runs/config3.json);
+# nothing of it is cut.  Post-constraint level sizes of levels 1..17 from
+# the JAX package's Engine on a CPU: Engine(build_cfg(3) on
+# configs/tlc_membership/raft.cfg, chunk=2048, burst=False,
+# store_states=False, lcap=2^22, vcap=2^24, ocap=2^14).check(
+# max_states=1_500_000) -> 2,875,461 distinct, depth 17, 0 violations.
+CONFIG3_BOUNDS = dict(max_log_length=2, max_timeouts=1,
+                      max_client_requests=2, max_membership_changes=1)
+CONFIG3_MAX_STATES = 1_500_000
+CONFIG3_DISTINCT, CONFIG3_DEPTH = 2_875_461, 17
+CONFIG3_LEVEL_SIZES = [1, 2, 4, 10, 20, 35, 56, 91, 141, 213, 382, 1117,
+                       4566, 19757, 80652, 305683, 1083047]
+# the port's capacities for config #3: the budget stops at level 17,
+# whose fresh rows are at most 2,875,461 less the 412,730 rows of levels
+# 1-16 that passed the constraints (2.46 M), under LCAP 2^22 less OCAP
+# (4.18 M), so no level replays for LCAP; the table ends under 0.18 load
+# at 2^24 slots; FCAP is the reference's for this config
+# (tools/measure_baseline.py ENGINE_KW[3])
+CONFIG3_ENGINE = dict(chunk=2048, lcap=1 << 22, vcap=1 << 24, ocap=1 << 14,
+                      fcap=45056)
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 # about 1 ms of device sleep at the H100's 1.98 GHz boost clock
@@ -167,15 +245,18 @@ def _probes(home, pos, vcap, max_rounds):
     return int(steps.sum())
 
 
-def kernel_phase(torch, fp, cvt, home_slots, card):
-    """Phase 3: kernel vs plain twin on seven fixtures; two launches
-    must agree, and the claim rounds must equal the CPU model's.
-    Returns the measurements of fixtures (d) and (f)."""
+def kernel_phase(torch, fp, cvt, home_slots, card, W=2,
+                 fixtures="abcdefg"):
+    """Phase 3: kernel vs plain twin on seven fixtures with W-word keys
+    (2: 64-bit fingerprints; 4: ``fp128``), or on the ``fixtures``
+    named; two launches must agree, and the claim rounds must equal the
+    CPU model's.  Returns the measurements of fixtures (d) and (f)."""
     import numpy as np
     dev = torch.device("cuda")
     rng = np.random.RandomState(2024)
-    W = 2
+    tag = "" if W == 2 else f" at W={W}"
     errs = []
+    out = {}
     ctr = fp.PROBE_CLAIM_LAUNCHES
 
     def both(table_np, keys_np, live_np, max_rounds=fp.MAX_PROBE_ROUNDS):
@@ -254,8 +335,39 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
                   4 * M + 4)
         return nbytes / HBM_BYTES_PER_S * 1e3, probes, nbytes
 
-    # (a) forced collisions: VCAP 128, M 96 over 24 distinct keys, dead
-    # lanes, a pre-populated cohort
+    if "a" in fixtures:
+        fixture_a(cvt, both, empty, rng, W, tag)
+    # (b) contended: VCAP 1024, M 400 distinct keys, all live
+    if "b" in fixtures:
+        r = both(empty(1024), _keys(rng, 400, W, salt=2),
+                 np.ones(400, bool))
+        log(f"phase 3b{tag} contended fixture (VCAP 1024, M 400): kernel "
+            f"== twin, {r['rounds']} rounds")
+    # (c) a full table: every live lane exhausts its probe budget
+    if "c" in fixtures:
+        full = _keys(rng, 64 + 8, W, salt=3)
+        r = both(full[:, :64], full[:, 64:], np.ones(8, bool))
+        check(r["hovf"] and not bool(r["fresh"].any()),
+              "fixture (c) did not overflow")
+        log(f"phase 3c{tag} full table (hovf): kernel == twin, "
+            f"{r['rounds']} rounds")
+    if "d" in fixtures:
+        out.update(fixture_d(torch, fp, cvt, both, timed, bound, rng, W,
+                             tag, card))
+    if "e" in fixtures:
+        fixture_e(both, empty, rng, W, cvt, home_slots)
+    if "f" in fixtures:
+        out.update(fixture_f(cvt, both, empty, timed, bound, rng, W, card))
+    if "g" in fixtures:
+        fixture_g(torch, cvt, home_slots, both, empty, rng, W, tag)
+    out["max_abs_err"] = max(errs)
+    return out
+
+
+def fixture_a(cvt, both, empty, rng, W, tag):
+    """(a) forced collisions: VCAP 128, M 96 over 24 distinct keys,
+    dead lanes, a pre-populated cohort."""
+    import numpy as np
     distinct = _keys(rng, 24, W, salt=1)
     keys = distinct[:, rng.randint(0, 24, size=96)]
     live = rng.rand(96) > 0.2
@@ -264,20 +376,16 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
     r = both(cvt.words_to_numpy(r["table"]), keys, live)
     check(int(r["fresh"].sum()) < int(live.sum()) and not r["hovf"],
           "fixture (a) vacuous")
-    log(f"phase 3a forced-collision fixture: kernel == twin, "
+    log(f"phase 3a{tag} forced-collision fixture: kernel == twin, "
         f"{r['rounds']} rounds")
-    # (b) contended: VCAP 1024, M 400 distinct keys, all live
-    r = both(empty(1024), _keys(rng, 400, W, salt=2), np.ones(400, bool))
-    log(f"phase 3b contended fixture (VCAP 1024, M 400): kernel == twin, "
-        f"{r['rounds']} rounds")
-    # (c) a full table: every live lane exhausts its probe budget
-    full = _keys(rng, 64 + 8, W, salt=3)
-    r = both(full[:, :64], full[:, 64:], np.ones(8, bool))
-    check(r["hovf"] and not bool(r["fresh"].any()),
-          "fixture (c) did not overflow")
-    log(f"phase 3c full table (hovf): kernel == twin, {r['rounds']} rounds")
-    # (d) config #1-sized: VCAP 2^24 filled to 35%, M 32768 with
-    # duplicates (in-table and in-batch); the fill runs on the kernel
+
+
+def fixture_d(torch, fp, cvt, both, timed, bound, rng, W, tag, card):
+    """(d) config #1-sized: VCAP 2^24 filled to 35%, M 32768 with
+    duplicates (in-table and in-batch); the fill runs on the kernel."""
+    import numpy as np
+    dev = torch.device("cuda")
+    ctr = fp.PROBE_CLAIM_LAUNCHES
     vcap, M = 1 << 24, 32768
     n_fill = int(0.35 * vcap)
     pool = _keys(rng, n_fill + M, W, salt=4)
@@ -291,8 +399,8 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
     (fill_rounds, fill_err), = ctr.rounds()
     ctr.reset()
     check(fill_err == 0, "fill found no fixpoint")
-    log(f"phase 3d fill [{card}]: {n_fill} keys into an empty 2^24 table "
-        f"in {fill_ms:.3f} ms, {fill_rounds} rounds")
+    log(f"phase 3d{tag} fill [{card}]: {n_fill} keys into an empty 2^24 "
+        f"table in {fill_ms:.3f} ms, {fill_rounds} rounds")
     pick = np.concatenate([rng.randint(0, n_fill, M // 4),
                            n_fill + rng.randint(0, M // 2, M - M // 4)])
     keys = pool[:, pick]
@@ -301,12 +409,20 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
     check(not d["hovf"], "fixture (d) overflowed")
     d_ms = timed(d["src"], d["keys"], d["live"])
     d_bound, d_probes, d_bytes = bound(d, vcap)
-    log(f"phase 3d config #1-sized fixture (VCAP 2^24 at 35%, M {M}) "
+    log(f"phase 3d{tag} config #1-sized fixture (VCAP 2^24 at 35%, M {M}) "
         f"[{card}]: kernel == twin, {int(d['fresh'].sum())} fresh, "
         f"{d['rounds']} rounds; kernel {d_ms:.4f} ms (median of 5), plain "
-        f"twin {d['plain_ms']:.1f} ms, {d_probes} probes, {d_bytes} bytes")
-    # (e) a same-home chain: 48 distinct keys share one home, so each
-    # round settles one more link of the chain
+        f"twin {d['plain_ms']:.1f} ms, {d_probes} probes, {d_bytes} bytes "
+        f"(bound {d_bound:.6f} ms)")
+    return dict(ms=d_ms, plain_ms=d["plain_ms"], bound_ms=d_bound,
+                probes=d_probes, rounds=d["rounds"], fill_ms=fill_ms,
+                fill_rounds=fill_rounds)
+
+
+def fixture_e(both, empty, rng, W, cvt, home_slots):
+    """(e) a same-home chain: 48 distinct keys share one home, so each
+    round settles one more link of the chain."""
+    import numpy as np
     vcap = 1024
     chain = _same_home(rng, 48, W, vcap, 321, cvt, home_slots)
     keys = np.concatenate([chain, chain[:, rng.randint(0, 48, 16)]], 1)
@@ -315,9 +431,13 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
           "fixture (e) is not a chain")
     log(f"phase 3e same-home chain (48 keys): kernel == twin, "
         f"{r['rounds']} rounds")
-    # (f) rehash-shaped: a 2^20 table at 0.40 load (itself filled by the
-    # kernel and held against the twin) reinserted in slot order into an
-    # empty 2^21 table, as Engine._rehash_tables does
+
+
+def fixture_f(cvt, both, empty, timed, bound, rng, W, card):
+    """(f) rehash-shaped: a 2^20 table at 0.40 load (itself filled by
+    the kernel and held against the twin) reinserted in slot order into
+    an empty 2^21 table, as Engine._rehash_tables does."""
+    import numpy as np
     n_old = int(0.40 * (1 << 20))
     old = both(empty(1 << 20), _keys(rng, n_old, W, salt=6),
                np.ones(n_old, bool))
@@ -331,9 +451,15 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
         f"2^21) [{card}]: kernel == twin, {f['rounds']} rounds (fill "
         f"{old['rounds']}); kernel {f_ms:.4f} ms (median of 5), plain twin "
         f"{f['plain_ms']:.1f} ms, {f_probes} probes, {f_bytes} bytes")
-    # (g) the all-ones key (it equals EMPTY) among dead lanes: lanes 0
-    # and 1 take the first two slots of its path, so live all-ones lanes
-    # pass them and stop, as duplicates, at the third
+    return dict(rehash_ms=f_ms, rehash_plain_ms=f["plain_ms"],
+                rehash_bound_ms=f_bound, rehash_rounds=f["rounds"])
+
+
+def fixture_g(torch, cvt, home_slots, both, empty, rng, W, tag):
+    """(g) the all-ones key (it equals EMPTY) among dead lanes: lanes 0
+    and 1 take the first two slots of its path, so live all-ones lanes
+    pass them and stop, as duplicates, at the third."""
+    import numpy as np
     vcap = 256
     h1 = int(home_slots(torch.full((W, 1), -1, dtype=torch.int32),
                         vcap)[0])
@@ -353,13 +479,8 @@ def kernel_phase(torch, fp, cvt, home_slots, card):
     pos = r["pos"].cpu().numpy()
     check(pos[2] == path[2] and not r["fresh"][[2, 46]].any(),
           "fixture (g): the all-ones lane did not pass the taken slots")
-    log(f"phase 3g all-ones key among dead lanes: kernel == twin, "
+    log(f"phase 3g{tag} all-ones key among dead lanes: kernel == twin, "
         f"{r['rounds']} rounds")
-    return dict(max_abs_err=max(errs), ms=d_ms, plain_ms=d["plain_ms"],
-                bound_ms=d_bound, probes=d_probes, rounds=d["rounds"],
-                rehash_ms=f_ms, rehash_plain_ms=f["plain_ms"],
-                rehash_bound_ms=f_bound, rehash_rounds=f["rounds"],
-                fill_ms=fill_ms, fill_rounds=fill_rounds)
 
 
 def expansion_phase(torch, Engine, cfg, card):
@@ -569,6 +690,181 @@ def check_answer(name, r, distinct, depth, level_sizes):
     check(res.levels_fused > 0, f"{name}: no level ran on the burst")
 
 
+def cli_run(argv):
+    """The port's CLI in this process: (exit code, stdout, stderr, the
+    (engine, result) of each ``Engine.check`` it made)."""
+    from raft_tla_tpu_torch import cli
+    from raft_tla_tpu_torch.engine import bfs
+    seen, orig = [], bfs.Engine.check
+
+    def recorded(self, *a, **kw):
+        res = orig(self, *a, **kw)
+        seen.append((self, res))
+        return res
+    out, err = io.StringIO(), io.StringIO()
+    bfs.Engine.check = recorded
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        bfs.Engine.check = orig
+    return rc, out.getvalue(), err.getvalue(), seen
+
+
+def _stats_and_rest(text):
+    """The check's stats line (less what a run cannot repeat: its
+    seconds, its rate and its device) and the text after it."""
+    head, _, rest = text.partition("\n")
+    stats = json.loads(head)
+    for k in ("seconds", "states_per_sec", "device"):
+        stats.pop(k)
+    return stats, rest
+
+
+def _no_seconds(text):
+    head, _, rest = text.partition(" states explored, ")
+    return head + rest.partition("s):")[2]
+
+
+def pinned_cfg(here, tmp):
+    """configs/tlc_membership/raft.cfg with the upstream pin lines
+    enabled, beside its spec stub (the bounds the parser reads)."""
+    text = open(os.path.join(here, "configs/tlc_membership/raft.cfg")).read()
+    text = text.replace("\nCONSTRAINTS\n", "\nCONSTRAINTS\n"
+                        "    CommitWhenConcurrentLeaders_unique\n")
+    text = text.replace("\nINVARIANTS\n", "\nINVARIANTS\n"
+                        "    CommitWhenConcurrentLeaders\n")
+    text += f"\nACTION_CONSTRAINTS\n    {ACT}\n"
+    path = os.path.join(tmp, "raft.cfg")
+    with open(path, "w") as fh:
+        fh.write(text)
+    shutil.copy(os.path.join(here, "configs/tlc_membership/raft.tla"), tmp)
+    return path
+
+
+def pinned_phase(torch, fp, here, tmp, card):
+    """Phase 10 (a): ``check`` of the cfg-pinned search to depth 11 on
+    the card, from the cfg alone, against the reference's answer; the
+    same check on the CPU to depth 8 against the card's first levels."""
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    argv = ["check", pinned_cfg(here, tmp), "--keep-going"] + PIN_FLAGS + \
+        CAP_FLAGS
+    torch.cuda.synchronize()
+    ctr.reset()
+    t0 = time.perf_counter()
+    rc, out, _err, seen = cli_run(argv + ["--max-depth", str(PINNED_DEPTH),
+                                          "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    (eng, res), = seen
+    stats, text = _stats_and_rest(out)
+    check(rc == 1, f"pinned check exit code {rc}")
+    check(eng.act_names == [ACT] and eng.cfg.prefix_pins,
+          "the pinned cfg lost its pins or its action constraint")
+    got = (res.distinct_states, res.generated_states, res.depth,
+           res.level_sizes, res.pin_interior_states, len(res.violations),
+           res.violations_global)
+    want = (PINNED_DISTINCT, PINNED_GENERATED, PINNED_DEPTH,
+            PINNED_LEVEL_SIZES, PINNED_INTERIOR, PINNED_VIOLATIONS,
+            PINNED_VIOLATIONS)
+    check(got == want, f"pinned search {got} != the reference's {want}")
+    first = res.violations[0]
+    check(first.state_id == PINNED_FIRST_GID and
+          [lbl for lbl, _ in eng.trace(first.state_id)] ==
+          PINNED_FIRST_TRACE, f"first witness {first.state_id}")
+    check(stats["pin_interior_states"] == PINNED_INTERIOR and
+          stats["violations"] == 5 and
+          stats["level_sizes"] == PINNED_LEVEL_SIZES,
+          f"pinned stats line {stats}")
+    check(launches > 0 and eng._graphs.replays > 0,
+          "the pinned search ran no captured step")
+    log(f"phase 10a pinned search [{card}]: distinct {res.distinct_states}, "
+        f"depth {res.depth}, {res.pin_interior_states} prefix interior "
+        f"states, {len(res.violations)} CommitWhenConcurrentLeaders "
+        f"violations (first: state {first.state_id}), == the reference; "
+        f"wall {wall:.2f} s, {res.distinct_states / wall:.0f} states/s; "
+        f"levels fused {res.levels_fused}; graphs captured "
+        f"{eng._graphs.captures}, replayed {eng._graphs.replays}; "
+        f"probe_claim_insert launches {launches}")
+    t0 = time.perf_counter()
+    rc_c, out_c, _e, seen_c = cli_run(
+        argv + ["--max-depth", str(PINNED_CPU_DEPTH), "--device", "cpu"])
+    cpu_wall = time.perf_counter() - t0
+    (ceng, cres), = seen_c
+    _cstats, ctext = _stats_and_rest(out_c)
+    n = cres.distinct_states
+    check(rc_c == rc and cres.level_sizes ==
+          PINNED_LEVEL_SIZES[:PINNED_CPU_DEPTH] and
+          cres.pin_interior_states == PINNED_INTERIOR,
+          f"CPU pinned search {cres.level_sizes}")
+    check([v.state_id for v in cres.violations] ==
+          [v.state_id for v in res.violations if v.state_id < n],
+          "CPU and card violations differ")
+    check(ctext.partition("\nViolation 1:")[0] ==
+          text.partition("\nViolation 1:")[0],
+          "CPU and card print different first witnesses")
+    log(f"phase 10a pinned search on the CPU to depth {PINNED_CPU_DEPTH}: "
+        f"{n} states, {len(cres.violations)} violations, == the card's "
+        f"first levels ({cpu_wall:.1f} s)")
+    return dict(wall=wall, launches=launches, replays=eng._graphs.replays,
+                captures=eng._graphs.captures, cpu_wall=cpu_wall)
+
+
+def seed_phase(torch, fp, here, tmp, card):
+    """Phase 10 (b): ``trace --emit-seed`` and then ``check
+    --seed-trace`` with the action constraint, on the card and on the
+    CPU: exit codes, witness text, seed file and stats equal."""
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    cfg = os.path.join(here, "configs/tlc_membership/raft.cfg")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        seed = os.path.join(tmp, f"seed_{dev}.json")
+        ctr.reset()
+        t0 = time.perf_counter()
+        tr = cli_run(["trace", cfg, "--target", SEED_TARGET, "--emit-seed",
+                      seed, "--device", dev] + PIN_FLAGS + CAP_FLAGS)
+        t1 = time.perf_counter()
+        trace_launches = ctr.count
+        ctr.reset()
+        ck = cli_run(["check", cfg, "--seed-trace", seed, "--invariant",
+                      "CommitWhenConcurrentLeaders", "--action-constraint",
+                      ACT, "--keep-going", "--max-depth",
+                      str(SEED_CHECK_DEPTH), "--device", dev] + PIN_FLAGS +
+                     CAP_FLAGS)
+        t2 = time.perf_counter()
+        with open(seed) as fh:
+            runs[dev] = dict(
+                trace=(tr[0], _no_seconds(tr[1])), seed=fh.read(),
+                check=(ck[0],) + _stats_and_rest(ck[1]),
+                walls=(t1 - t0, t2 - t1), trace_launches=trace_launches,
+                check_launches=ctr.count, eng=ck[3][0][0])
+        ctr.reset()
+    g, c = runs["cuda"], runs["cpu"]
+    check(g["trace"][0] == 0 and g["trace"] == c["trace"],
+          "card and CPU witnesses differ")
+    check(g["seed"] == c["seed"] and '"nonview"' in g["seed"],
+          "card and CPU seed files differ")
+    check(g["check"] == c["check"], "card and CPU seeded checks differ")
+    check(g["eng"].act_names == [ACT] and g["eng"]._graphs.replays > 0 and
+          g["trace_launches"] > 0 and g["check_launches"] > 0,
+          "the seeded check ran no captured step with the mask")
+    stats = g["check"][1]
+    log(f"phase 10b trace --target {SEED_TARGET} --emit-seed, then check "
+        f"--seed-trace --action-constraint to depth {SEED_CHECK_DEPTH} "
+        f"[{card}]: card == CPU (exit codes {g['trace'][0]}, "
+        f"{g['check'][0]}; witness, seed file, stats: "
+        f"{stats['distinct_states']} states, {stats['violations']} "
+        f"violations); card walls {g['walls'][0]:.2f} / "
+        f"{g['walls'][1]:.2f} s, CPU {c['walls'][0]:.2f} / "
+        f"{c['walls'][1]:.2f} s; probe_claim_insert launches: trace "
+        f"{g['trace_launches']}, check {g['check_launches']}")
+    return dict(walls=g["walls"], cpu_walls=c["walls"],
+                trace_launches=g["trace_launches"],
+                check_launches=g["check_launches"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -577,7 +873,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from raft_tla_tpu_torch.cfg.parser import load_model
-        from raft_tla_tpu_torch.config import Bounds, ModelConfig, NEXT_ASYNC
+        from raft_tla_tpu_torch.config import (Bounds, ModelConfig,
+                                               NEXT_ASYNC, NEXT_DYNAMIC)
         from raft_tla_tpu_torch.engine import cuda_ext
         from raft_tla_tpu_torch.engine import fingerprint as fp
         from raft_tla_tpu_torch.engine.bfs import Engine
@@ -598,8 +895,10 @@ def main():
     cuda_ext.build(verbose=True)            # prints ptxas's resource use
     cuda_ext.library()
     log(f"phase 2 build and load: {time.perf_counter() - t0:.1f} s")
-    # phase 3
+    # phase 3, with 64-bit keys and then with fp128's 4-word keys
     meas = kernel_phase(torch, fp, cvt, home_slots, card)
+    meas4 = kernel_phase(torch, fp, cvt, home_slots, card, W=4,
+                         fixtures="bcdg")
     # phase 4: the main path, config #1, incremental fingerprints
     cfg1 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
                       bounds=Bounds.make(**CONFIG1_BOUNDS))
@@ -667,6 +966,37 @@ def main():
     t7 = expansion_phase(torch, Engine, cfg1, card)
     # phase 8: the captured chunk step against the eager one
     t8 = graph_phase(torch, fp, Engine, cfg1, card)
+    # phase 9: config #1 with 128-bit fingerprints (4-word dedup keys)
+    c1w = run_path(torch, fp, Engine, cfg1.with_(fp128=True),
+                   CONFIG1_ENGINE, CONFIG1_MAX_STATES)
+    check(c1w["eng"].W == 4, f"fp128 ran {c1w['eng'].W}-word keys")
+    report("phase 9 config #1 (fp128, 4-word keys)", c1w, card)
+    check_answer("config #1 fp128", c1w, CONFIG1_DISTINCT, CONFIG1_DEPTH,
+                 CONFIG1_LEVEL_SIZES)
+    # phase 10: the punctuated search, from the cfg and from a seed file
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t10 = pinned_phase(torch, fp, here, tmp, card)
+        t10b = seed_phase(torch, fp, here, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # phase 11: BASELINE config #3, the membership workload
+    cfg3 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
+                      bounds=Bounds.make(**CONFIG3_BOUNDS))
+    cfg3 = cfg3.with_(n_servers=4, init_servers=(0, 1, 2),
+                      next_family=NEXT_DYNAMIC,
+                      invariants=tuple(cfg3.invariants) +
+                      ("OneAtATimeMembershipChangeOK",))
+    c3 = run_path(torch, fp, Engine, cfg3, CONFIG3_ENGINE,
+                  CONFIG3_MAX_STATES)
+    report("phase 11 config #3 (NextDynamic, Server=4, InitServer=3)", c3,
+           card)
+    check_answer("config #3", c3, CONFIG3_DISTINCT, CONFIG3_DEPTH,
+                 CONFIG3_LEVEL_SIZES)
+    check(c3["eng"].LCAP == CONFIG3_ENGINE["lcap"],
+          f"config #3 replayed a level for LCAP ({c3['eng'].LCAP})")
+    log(f"phase 11 config #3 [{card}]: LCAP stayed 2^22; FCAP "
+        f"{c3['eng'].FCAP}, OCAP {c3['eng'].OCAP}, VCAP {c3['eng'].VCAP}")
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -692,17 +1022,33 @@ def main():
         "main_path_rounds_mean": t8["rounds_mean"],
         "config1_launches": c1["launches"],
         "config1_direct_launches": c1d["launches"],
-        "config1_plain_expansion_launches": c1p["launches"]}],
+        "config1_plain_expansion_launches": c1p["launches"],
+        "ms_w4": meas4["ms"], "plain_ms_w4": meas4["plain_ms"],
+        "bound_ms_w4": meas4["bound_ms"], "rounds_w4": meas4["rounds"],
+        "max_abs_err_w4": meas4["max_abs_err"],
+        "config1_fp128_launches": c1w["launches"],
+        "pinned_search_launches": t10["launches"],
+        "seed_trace_launches": t10b["trace_launches"],
+        "seeded_check_launches": t10b["check_launches"],
+        "config3_launches": c3["launches"]}],
         "graphs": {
             "config1_replays": c1["replays"],
             "config1_captures": c1["captures"],
             "config5_replays": c5["replays"],
             "config5_captures": c5["captures"],
+            "config1_fp128_replays": c1w["replays"],
+            "pinned_search_replays": t10["replays"],
+            "config3_replays": c3["replays"],
             "depth16_steps": t8["steps"],
             "depth16_wall_eager_graph_graph_eager_s": t8["walls"]},
         "walls_s": {"config1": c1["wall"], "config1_direct": c1d["wall"],
                     "config1_plain_expansion": c1p["wall"],
-                    "config5": c5["wall"]},
+                    "config5": c5["wall"], "config1_fp128": c1w["wall"],
+                    "pinned_search_depth11": t10["wall"],
+                    "pinned_search_cpu_depth8": t10["cpu_wall"],
+                    "seed_trace_card": list(t10b["walls"]),
+                    "seed_trace_cpu": list(t10b["cpu_walls"]),
+                    "config3": c3["wall"]},
         "guard_product": {
             "call": "torch._int_mm", "shape": t7["int_mm_shape"],
             "int_mm_ms": t7["int_mm_ms"],

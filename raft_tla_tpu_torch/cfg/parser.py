@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 from ..config import (Bounds, DEFAULT_CONSTRAINTS, DEFAULT_INVARIANTS,
                       ModelConfig, NEXT_ASYNC, NEXT_ASYNC_CRASH,
                       NEXT_DYNAMIC, NEXT_FULL)
-from ..ops import vpredicates as OP
+from ..models import predicates as OP
 
 _KEYWORDS = {
     "CONSTANTS", "CONSTANT", "SYMMETRY", "VIEW", "INIT", "NEXT",

@@ -8,11 +8,17 @@
                BFS until the property NAME (a scenario property or a
                safety invariant) is violated and prints the witness
                trace (exit 0 when found, 1 if not, 2 for an unknown
-               name).
+               name); ``--emit-seed FILE`` writes the witness end state
+               as a seed for ``check --seed-trace FILE``.
 
-The bounds flags override the cfg's in-spec bounds as the reference
-CLI's do; ``--device`` picks the device (default cuda; the run raises
-when CUDA is absent unless ``--device cpu`` is given); ``--sym-canon``,
+The punctuated search runs from the cfg alone (prefix pins and
+ACTION_CONSTRAINTS) or from a seed file.  ``--engine oracle`` runs the
+plain-Python oracle (``models/explore.py``) instead of the device
+engine ("tpu", the reference CLI's name for it).  The bounds and model
+flags override the cfg's as the reference CLI's do, and ``check
+--invariant/--constraint/--action-constraint`` add to the cfg's lists.
+``--device`` picks the device (default cuda; the run raises when CUDA
+is absent unless ``--device cpu`` is given); ``--sym-canon``,
 ``--guard-matmul``, ``--delta-matmul`` and ``--fam-cap-density`` pick
 the engine's forms, and ``check --burst/--no-burst`` and
 ``--burst-levels`` its driver, as the reference's do.  The stats keys
@@ -24,12 +30,13 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 from .cfg.parser import load_model
 from .config import Bounds
 
 
-def _apply_overrides(cfg, args):
+def _apply_overrides(cfg, args, ir):
     kw = {}
     if args.servers is not None:
         kw["n_servers"] = args.servers
@@ -46,49 +53,99 @@ def _apply_overrides(cfg, args):
             kw["max_inflight_override"] = 4 * new_n * new_n
     elif args.init_servers is not None:
         kw["init_servers"] = tuple(range(args.init_servers))
+    if args.symmetry is not None:
+        kw["symmetry"] = args.symmetry
+    if args.next_family:
+        # the CLI analog of editing the cfg's NEXT line
+        kw["next_family"] = args.next_family
     b = cfg.bounds
     bkw = {k: getattr(args, k) for k in
-           ("max_log_length", "max_timeouts", "max_client_requests")
+           ("max_terms", "max_log_length", "max_timeouts",
+            "max_client_requests", "max_restarts")
            if getattr(args, k) is not None}
     if bkw:
         kw["bounds"] = Bounds.make(
             max_log_length=bkw.get("max_log_length", b.max_log_length),
-            max_restarts=b.max_restarts,
+            max_restarts=bkw.get("max_restarts", b.max_restarts),
             max_timeouts=bkw.get("max_timeouts", b.max_timeouts),
             max_client_requests=bkw.get("max_client_requests",
                                         b.max_client_requests),
             max_membership_changes=b.max_membership_changes,
+            max_terms=bkw.get("max_terms"),
             max_trace=b.max_trace)
+    if args.fp128:
+        kw["fp128"] = True
+    # cfg-surgery equivalents of TLC's comment-toggling (raft.cfg:51-76),
+    # additive like TLC's repeated CONSTRAINTS/INVARIANTS blocks
+
+    def _add(base, extra, known, what):
+        for nm in extra:
+            if nm not in known:
+                raise SystemExit(
+                    f"unknown {what} {nm!r}; known: "
+                    f"{', '.join(sorted(known))}")
+        return tuple(dict.fromkeys(base + tuple(extra)))
+    if getattr(args, "invariants", None):
+        kw["invariants"] = _add(cfg.invariants, args.invariants,
+                                ir.known_invariants, "invariant")
+    if getattr(args, "constraint_overrides", None):
+        kw["constraints"] = _add(cfg.constraints, args.constraint_overrides,
+                                 ir.known_constraints, "constraint")
+    if getattr(args, "action_constraints", None):
+        kw["action_constraints"] = _add(cfg.action_constraints,
+                                        args.action_constraints,
+                                        ir.known_action_constraints,
+                                        "action constraint")
     return cfg.with_(**kw) if kw else cfg
 
 
-def check_stats(res, fp_bits: int) -> dict:
-    """The ``check`` stats payload, with the reference's key names."""
-    distinct, gen, secs = res.distinct_states, res.generated_states, \
-        res.seconds
-    return {
+def _load_cfg(args):
+    """(SpecIR handle, model config)."""
+    from .spec import get_spec
+    ir = get_spec("raft")
+    return ir, _apply_overrides(load_model(args.cfg, bounds=None), args, ir)
+
+
+def check_stats(counters: dict, seconds: float, n_violations: int,
+                fp_bits=None) -> dict:
+    """The ``check`` stats payload, with the reference's key names and
+    order: ``pin_interior_states`` only when nonzero, the fingerprint
+    and burst keys only for the engine (``fp_bits`` given)."""
+    distinct = int(counters["distinct_states"])
+    gen = int(counters["generated_states"])
+    out = {
         "distinct_states": distinct,
         "generated_states": gen,
-        "depth": res.depth,
-        "seconds": round(secs, 3),
-        "states_per_sec": round(distinct / max(secs, 1e-9), 1),
+        "depth": int(counters["depth"]),
+        "seconds": round(float(seconds), 3),
+        "states_per_sec": round(distinct / max(seconds, 1e-9), 1),
         "dedup_hit_rate": round(1.0 - distinct / max(gen, 1), 4),
-        "violations": len(res.violations),
-        "fp_bits": fp_bits,
-        "expected_fp_collisions": float(
-            distinct * distinct / 2.0 ** (fp_bits + 1)),
-        "levels_fused": res.levels_fused,
-        "burst_dispatches": res.burst_dispatches,
-        "burst_bailouts": res.burst_bailouts,
-        "level_sizes": list(res.level_sizes),
-        # 1 = orbit-sort, 0 = min-over-perms: the resolved --sym-canon
-        "sym_canon": res.sym_canon,
-        "spec": "raft",
+        "violations": int(n_violations),
     }
+    if int(counters.get("pin_interior_states", 0) or 0):
+        out["pin_interior_states"] = int(counters["pin_interior_states"])
+    if fp_bits is not None:
+        out["fp_bits"] = int(fp_bits)
+        out["expected_fp_collisions"] = float(
+            distinct * distinct / 2.0 ** (fp_bits + 1))
+        for k in ("levels_fused", "burst_dispatches", "burst_bailouts",
+                  "level_sizes", "sym_canon"):
+            out[k] = counters[k]
+    out["spec"] = "raft"
+    return out
 
 
-# the reference CLI's default --max-violations (the port has no flag)
-MAX_VIOLATIONS = 5
+def _engine_counters(res) -> dict:
+    """A CheckResult's counters for ``check_stats`` (sym_canon: 1 =
+    orbit-sort, 0 = min-over-perms, the resolved --sym-canon)."""
+    return dict(distinct_states=res.distinct_states,
+                generated_states=res.generated_states, depth=res.depth,
+                pin_interior_states=res.pin_interior_states,
+                levels_fused=res.levels_fused,
+                burst_dispatches=res.burst_dispatches,
+                burst_bailouts=res.burst_bailouts,
+                level_sizes=list(res.level_sizes),
+                sym_canon=res.sym_canon)
 
 
 def _engine(cfg, args, store_states):
@@ -123,6 +180,61 @@ def _print_violation(idx, name, trace):
             print(f"       {sv}")
 
 
+def _load_seeds(path, ir):
+    """Seed-trace file -> (oracle seeds [(sv, h)], engine seeds [(sv, h,
+    nonview lanes or None)]) for the punctuated search."""
+    with open(path) as fh:
+        data = json.load(fh)
+    if isinstance(data, dict):
+        data = [data]
+    oracle_seeds, engine_seeds = [], []
+    for obj in data:
+        # seed files are spec-tagged (a paxos seed carries a "paxos"
+        # marker; untagged files are raft's)
+        got_spec = "paxos" if obj.get("paxos") else "raft"
+        if got_spec != ir.name:
+            raise SystemExit(
+                f"{path}: seed was emitted for spec {got_spec!r}; "
+                f"this run is --spec {ir.name} — re-emit the seed "
+                f"with the matching --spec")
+        sv, h = ir.state_from_obj(obj)
+        oracle_seeds.append((sv, h))
+        engine_seeds.append((sv, h, obj.get("nonview")))
+    return oracle_seeds, engine_seeds
+
+
+def _engine_seed_arrays(cfg, ir, engine_seeds):
+    """Engine seeds -> raw SoA dicts: an engine-emitted seed's non-VIEW
+    lanes replace the ones the codec rebuilds from its history."""
+    import numpy as np
+    lay = ir.make_layout(cfg)
+    out = []
+    for sv, h, nonview in engine_seeds:
+        arrs = ir.encode(lay, sv, h)
+        if nonview:
+            for k, v in nonview.items():
+                arrs[k] = np.asarray(v, dtype=arrs[k].dtype)
+        out.append(arrs)
+    return out
+
+
+def _write_seed(path, obj):
+    with open(path, "w") as fh:
+        json.dump(obj, fh)
+    print(f"seed written to {path}", file=sys.stderr)
+
+
+def _seed_obj(ir, sv, hist, arrs):
+    """Witness end state -> the seed-file object ``check --seed-trace``
+    accepts: the oracle view plus the raw non-VIEW lanes, so a seeded
+    engine resumes with identical constraint and predicate inputs."""
+    import numpy as np
+    obj = ir.state_to_obj(sv, hist)
+    obj["nonview"] = {k: np.asarray(arrs[k]).tolist()
+                      for k in ir.nonview_keys}
+    return obj
+
+
 def _check_target(name, ir) -> bool:
     """A --target names a scenario property or a safety invariant of
     the spec; else print what is known and refuse."""
@@ -140,57 +252,150 @@ def _check_target(name, ir) -> bool:
 
 
 def cmd_check(args) -> int:
-    if args.burst_levels is not None and args.burst_levels <= 0:
-        print(f"--burst-levels must be positive (got "
-              f"{args.burst_levels}); use --no-burst to disable "
-              "the fused-level path", file=sys.stderr)
-        return 2
-    err = _fam_density(args)
-    if err:
-        print(err, file=sys.stderr)
-        return 2
-    cfg = _apply_overrides(load_model(args.cfg), args)
-    eng = _engine(cfg, args, store_states=True)
-    res = eng.check(max_depth=args.max_depth, max_states=args.max_states,
-                    stop_on_violation=True)
-    stats = check_stats(res, 32 * eng.W)
-    stats["device"] = str(eng.device)
-    print(json.dumps(stats))
+    ir, cfg = _load_cfg(args)
+    oracle_seeds = engine_seeds = None
+    if args.seed_trace:
+        oracle_seeds, raw = _load_seeds(args.seed_trace, ir)
+        if args.engine == "oracle":
+            # engine-emitted seeds (non-VIEW lanes, no history records)
+            # cannot feed the oracle's record-scanning predicates
+            needs_glob = ir.glob_dependent & (
+                set(cfg.invariants) | set(cfg.constraints) |
+                set(cfg.action_constraints))
+            for _sv, h, nonview in raw:
+                if nonview and not h.glob and needs_glob:
+                    print(f"seed was emitted by the tpu engine (nonview "
+                          f"lanes, no history records); the oracle "
+                          f"cannot evaluate {sorted(needs_glob)} on it — "
+                          f"re-emit the seed with `trace --engine oracle "
+                          f"--emit-seed`", file=sys.stderr)
+                    return 2
+        else:
+            engine_seeds = _engine_seed_arrays(cfg, ir, raw)
+    if args.engine == "oracle":
+        t0 = time.perf_counter()
+        r = ir.oracle_explore(cfg, max_depth=args.max_depth,
+                              max_states=args.max_states,
+                              stop_on_violation=not args.keep_going,
+                              trace_violations=True,
+                              seed_states=oracle_seeds)
+        secs = time.perf_counter() - t0
+        viol = [(v.invariant, v.trace) for v in r.violations]
+        out = check_stats(dict(
+            distinct_states=r.distinct_states,
+            generated_states=r.generated_states, depth=r.depth,
+            pin_interior_states=r.pin_interior_states), secs, len(viol))
+    else:
+        if args.burst_levels is not None and args.burst_levels <= 0:
+            print(f"--burst-levels must be positive (got "
+                  f"{args.burst_levels}); use --no-burst to disable "
+                  "the fused-level path", file=sys.stderr)
+            return 2
+        err = _fam_density(args)
+        if err:
+            print(err, file=sys.stderr)
+            return 2
+        eng = _engine(cfg, args, store_states=not args.no_store)
+        r = eng.check(max_depth=args.max_depth, max_states=args.max_states,
+                      stop_on_violation=not args.keep_going,
+                      seed_states=engine_seeds, verbose=args.verbose)
+        viol = []
+        for v in r.violations[:args.max_violations]:
+            if v.state_id < 0:
+                # a pinned-prefix interior state: checked at seed time,
+                # it never entered the BFS and has no parent chain
+                trace = [("(pinned-prefix interior state — precedes "
+                          "the seeded witness end)", v.state)]
+            elif not args.no_store:
+                trace = eng.trace(v.state_id)
+            elif v.state is not None:
+                # no parent archive, but the violating state was decoded
+                # at detection time
+                trace = [("(violating state; run without --no-store "
+                          "for the full trace)", v.state)]
+            else:
+                trace = None
+            viol.append((v.invariant, trace))
+        if r.overflow_faults:
+            print(f"FAULT: {r.overflow_faults} un-representable states "
+                  f"(bounds too small for the disabled-constraint space)",
+                  file=sys.stderr)
+        out = check_stats(_engine_counters(r), r.seconds, len(viol),
+                          fp_bits=128 if args.fp128 else 64)
+        out["device"] = str(eng.device)
+    print(json.dumps(out))
     if args.stats_json:
         with open(args.stats_json, "w") as fh:
-            json.dump(stats, fh, indent=1)
-    viol = res.violations[:MAX_VIOLATIONS]
-    for k, v in enumerate(viol):
-        _print_violation(k, v.invariant, eng.trace(v.state_id))
+            json.dump(out, fh, indent=1)
+    for k, (name, trace) in enumerate(viol):
+        if args.engine == "oracle":
+            print(f"\nViolation {k}: {name}")
+            if trace:
+                print("  " + " -> ".join(trace))
+            elif trace is None:
+                # a pinned-prefix interior state has no action trace (a
+                # root violation has an empty one)
+                print("  (pinned-prefix interior state — precedes the "
+                      "seeded witness end)")
+            else:
+                print("  (violation at a root state — empty trace)")
+        else:
+            _print_violation(k, name, trace)
     return 1 if viol else 0
 
 
 def cmd_trace(args) -> int:
-    from .spec import get_spec
-    if not _check_target(args.target, get_spec("raft")):
+    ir, cfg = _load_cfg(args)
+    if not _check_target(args.target, ir):
         return 2
+    cfg = cfg.with_(invariants=(args.target,))
+    if args.engine == "oracle":
+        t0 = time.perf_counter()
+        r = ir.oracle_explore(cfg, max_depth=args.max_depth,
+                              max_states=args.max_states,
+                              stop_on_violation=True, trace_violations=True)
+        if not r.violations:
+            print(f"no witness found for {args.target} within bounds "
+                  f"({r.distinct_states} states, depth {r.depth})")
+            return 1
+        print(f"witness for {args.target} at depth {r.depth} "
+              f"({r.distinct_states} states explored, "
+              f"{time.perf_counter() - t0:.1f}s):")
+        for step, label in enumerate(r.violations[0].trace):
+            print(f"  {step + 1:3d}  {label}")
+        if args.emit_seed:
+            v = r.violations[0]
+            _write_seed(args.emit_seed, ir.state_to_obj(v.state, v.hist))
+        return 0
     err = _fam_density(args)
     if err:
         print(err, file=sys.stderr)
         return 2
-    cfg = _apply_overrides(load_model(args.cfg), args)
-    cfg = cfg.with_(invariants=(args.target,))
     eng = _engine(cfg, args, store_states=True)
-    res = eng.check(max_depth=args.max_depth, max_states=args.max_states,
-                    stop_on_violation=True)
-    if not res.violations:
+    r = eng.check(max_depth=args.max_depth, max_states=args.max_states,
+                  stop_on_violation=True, verbose=args.verbose)
+    if not r.violations:
         print(f"no witness found for {args.target} within bounds "
-              f"({res.distinct_states} states, depth {res.depth})")
+              f"({r.distinct_states} states, depth {r.depth})")
         return 1
-    v = res.violations[0]
-    print(f"witness for {args.target} at depth {res.depth} "
-          f"({res.distinct_states} states explored, "
-          f"{res.seconds:.1f}s):")
-    for step, (label, _sv) in enumerate(eng.trace(v.state_id)):
+    v = r.violations[0]
+    print(f"witness for {args.target} at depth {r.depth} "
+          f"({r.distinct_states} states explored, "
+          f"{r.seconds:.1f}s):")
+    for step, (label, sv) in enumerate(eng.trace(v.state_id)):
         print(f"  {step:3d}  {label}")
+        if args.verbose:
+            print(f"       {sv}")
+    if args.emit_seed:
+        arrs = eng.get_state_arrays(v.state_id)
+        sv, h = ir.decode(eng.lay, arrs)
+        _write_seed(args.emit_seed, _seed_obj(ir, sv, h, arrs))
     if args.stats_json:
         with open(args.stats_json, "w") as fh:
-            json.dump(check_stats(res, 32 * eng.W), fh, indent=1)
+            json.dump(check_stats(_engine_counters(r), r.seconds,
+                                  len(r.violations),
+                                  fp_bits=128 if args.fp128 else 64),
+                      fh, indent=1)
     return 0
 
 
@@ -200,11 +405,30 @@ def main(argv=None) -> int:
 
     def common(sp):
         sp.add_argument("cfg", help="TLC model file (raft.cfg)")
-        sp.add_argument("--servers", type=int, default=None)
-        sp.add_argument("--init-servers", type=int, default=None)
+        sp.add_argument("--engine", choices=("tpu", "oracle"),
+                        default="tpu",
+                        help="the device engine (default; named as the "
+                             "reference CLI names it) or the "
+                             "plain-Python oracle")
+        sp.add_argument("--servers", type=int, default=None,
+                        help="override |Server|")
+        sp.add_argument("--init-servers", type=int, default=None,
+                        help="override |InitServer| (first K servers)")
+        sp.add_argument("--symmetry", action=argparse.BooleanOptionalAction,
+                        default=None)
+        sp.add_argument("--next", dest="next_family", default=None,
+                        choices=("NextAsync", "NextAsyncCrash", "Next",
+                                 "NextDynamic"),
+                        help="override the cfg's NEXT family (e.g. "
+                             "NextDynamic enables the membership "
+                             "actions)")
+        sp.add_argument("--max-terms", type=int, default=None)
         sp.add_argument("--max-log-length", type=int, default=None)
         sp.add_argument("--max-timeouts", type=int, default=None)
         sp.add_argument("--max-client-requests", type=int, default=None)
+        sp.add_argument("--max-restarts", type=int, default=None)
+        sp.add_argument("--fp128", action="store_true",
+                        help="128-bit fingerprints (4-word dedup keys)")
         sp.add_argument("--max-depth", type=int, default=10 ** 9)
         sp.add_argument("--max-states", type=int, default=10 ** 9)
         sp.add_argument("--chunk", type=int, default=512)
@@ -246,9 +470,12 @@ def main(argv=None) -> int:
                              "Receive=8,Timeout=2): cap_f = chunk * "
                              "min(lanes_f, k); unknown families and "
                              "non-positive k are refused")
+        sp.add_argument("--verbose", "-v", action="store_true")
 
     pc = sub.add_parser("check", help="exhaustive model check")
     common(pc)
+    pc.add_argument("--keep-going", action="store_true",
+                    help="do not stop at the first violation")
     pc.add_argument("--burst", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="fuse runs of small levels: while the frontier "
@@ -260,9 +487,30 @@ def main(argv=None) -> int:
                     metavar="K",
                     help="max levels fused per burst dispatch "
                          "(default 16)")
+    pc.add_argument("--no-store", action="store_true",
+                    help="keep no state archive: violations show the "
+                         "violating state, not its trace")
+    pc.add_argument("--max-violations", type=int, default=5)
+    pc.add_argument("--seed-trace", default=None, metavar="FILE",
+                    help="punctuated search: explore only extensions of "
+                         "the seed state(s) in FILE (emitted by `trace "
+                         "--emit-seed`; the engine analog of the spec's "
+                         "hard-coded prefix pins, raft.tla:1198-1234)")
+    pc.add_argument("--invariant", dest="invariants",
+                    action="append", default=None, metavar="NAME",
+                    help="enable an extra invariant (repeatable)")
+    pc.add_argument("--constraint", dest="constraint_overrides",
+                    action="append", default=None, metavar="NAME",
+                    help="enable an extra CONSTRAINT (repeatable)")
+    pc.add_argument("--action-constraint", dest="action_constraints",
+                    action="append", default=None, metavar="NAME",
+                    help="enable an extra ACTION_CONSTRAINT (repeatable)")
     pt = sub.add_parser("trace", help="witness trace for a scenario")
     common(pt)
     pt.add_argument("--target", required=True)
+    pt.add_argument("--emit-seed", default=None, metavar="FILE",
+                    help="write the witness end state to FILE as a seed "
+                         "for `check --seed-trace` (punctuated search)")
     # trace runs the default driver, as the reference's does
     pt.set_defaults(burst=True, burst_levels=None)
     args = ap.parse_args(argv)

@@ -9,7 +9,8 @@ Per frontier chunk (``_chunk_step``): guard-first expansion over the
 [B, A] lane grid (the int8 guard product by default), compaction of
 the enabled lanes into the fixed-width FCAP candidate buffer with
 successor materialization (the delta group for the affine families,
-kernels for the rest), the symmetry-canonical fingerprint (incremental
+kernels for the rest), the ACTION_CONSTRAINTS mask on the (parent,
+successor) pairs, the symmetry-canonical fingerprint (incremental
 from per-parent term tables where the fingerprinter supports it, else
 direct: minperm, or orbit-sort with the hard lanes' min over every
 permutation), claim-insert dedup into the visited table
@@ -23,6 +24,10 @@ the level's scalars once and commits the level (the level buffer
 becomes the frontier) or, when a buffer overflowed, rolls the visited
 table back through the level's insert journal and leaves the frontier
 intact, so the host can grow the capacity and replay the level.
+
+The roots are Init, the caller's seed states, or the cfg's prefix pins
+compiled to seeds (the punctuated search, ``models/golden.py``), whose
+replayed interior states are invariant-checked apart.
 
 While the frontier fits a ring of ``_BURST_CHUNKS`` chunks, the burst
 (``_burst_body``, the reference's ``_burst_core``) runs whole levels
@@ -46,6 +51,7 @@ and the dedup resolves lanes in that order.
 from __future__ import annotations
 
 import time
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -97,6 +103,9 @@ class CheckResult:
         # sort mode: hard lanes that took the min-over-perms fallback,
         # the chunks that had any, and the most in one chunk
         self.hard_lanes = self.hard_chunks = self.hard_chunk_max = 0
+        # distinct pinned-prefix interior states invariant-checked but
+        # not counted (TLC counts them; models/golden docstring)
+        self.pin_interior_states = 0
 
     def __repr__(self):
         return (f"CheckResult(distinct_states={self.distinct_states}, "
@@ -228,6 +237,27 @@ def _hard_add(h: torch.Tensor, nh: torch.Tensor) -> torch.Tensor:
     return torch.stack([h[0] + nh, h[1] + (nh > 0), torch.maximum(h[2], nh)])
 
 
+class _ParentRows(Mapping):
+    """The parent's batch-last fields gathered per candidate column, each
+    field on its first read: an action constraint pays only for the
+    fields it reads (XLA drops the unread gathers of the reference's
+    dict; eager PyTorch and a captured graph would run them all)."""
+
+    def __init__(self, sv, prow: torch.Tensor):
+        self._sv, self._prow, self._rows = sv, prow, {}
+
+    def __getitem__(self, key):
+        if key not in self._rows:
+            self._rows[key] = self._sv[key].index_select(-1, self._prow)
+        return self._rows[key]
+
+    def __iter__(self):
+        return iter(self._sv)
+
+    def __len__(self):
+        return len(self._sv)
+
+
 class Engine:
     """One checker instance per (ModelConfig, chunk size, device).
 
@@ -280,10 +310,6 @@ class Engine:
                  delta_chunk_skip: Optional[bool] = None,
                  fam_density: Optional[Dict[str, int]] = None,
                  device: Optional[str] = None):
-        if cfg.prefix_pins or cfg.action_constraints:
-            raise NotImplementedError(
-                "cfg prefix pins and ACTION_CONSTRAINTS are not ported "
-                "yet")
         if burst_levels is not None and int(burst_levels) <= 0:
             raise ValueError(
                 f"burst_levels must be positive, got {burst_levels} "
@@ -313,6 +339,8 @@ class Engine:
         self.preds = self.ir.make_predicates(self.lay)
         self.inv_names = list(cfg.invariants)
         self.con_names = list(cfg.constraints)
+        self.act_names = list(cfg.action_constraints)
+        self._act_fns = [self.preds.action_fn(nm) for nm in self.act_names]
         self.labels = self.expander.lane_labels()
         self.A = self.expander.n_lanes
         self.W = self.fpr.n_streams           # u32 words per dedup key
@@ -357,6 +385,15 @@ class Engine:
         for nm in self.con_names:
             con = con & self.preds.constraint_fn(nm)(svT, der)
         return inv, con
+
+    def _act_ok(self, parent, cand) -> torch.Tensor:
+        """ACTION_CONSTRAINTS (TLC semantics) on batch-last (parent,
+        successor) pairs: ok bool [N]; a violating transition is not
+        taken."""
+        ok = self._act_fns[0](parent, cand)
+        for fn in self._act_fns[1:]:
+            ok = ok & fn(parent, cand)
+        return ok
 
     # ------------------------------------------------------------------
     # the visited table
@@ -420,20 +457,22 @@ class Engine:
         """Guard-first expansion over the [B, A] lane grid (rows outside
         ``valid`` [B] disabled), compaction of the enabled lanes into the
         fixed-width FCAP candidate buffer in ascending (row, lane) order,
-        successor materialization and the symmetry-canonical
-        fingerprint (the reference's ``_expand_fp_chunk``).  Returns
-        (cand [..., fcap], elive [fcap], keys [W, fcap], lanes [fcap]
-        (buffer slot -> flat lane), counts [n_fams], n_e, n_hard), the
-        per-family and total enabled counts and, in sort mode, the live
-        hard lanes as device data (n_hard None otherwise).  Columns
-        past n_e are garbage: they are not live."""
+        successor materialization, ACTION_CONSTRAINTS and the
+        symmetry-canonical fingerprint (the reference's
+        ``_expand_fp_chunk``).  Returns (cand [..., fcap], elive [fcap],
+        keys [W, fcap], lanes [fcap] (buffer slot -> flat lane), counts
+        [n_fams], n_e, n_gen, n_hard): the per-family and total enabled
+        counts, the live candidates (the generated states) and, in sort
+        mode, the live hard lanes, all device data (n_hard None
+        otherwise).  Columns past n_e are garbage: they are not live."""
         derb = self.kern.derived(sv)
         okf = (self.expander.guards_T(sv, derb) &
                valid[:, None]).reshape(-1)
         epos, n_e = compact_positions(okf, fcap)
         elive = torch.arange(fcap, device=self.device) < n_e
-        n_hard = None
-        if self.incremental_fp and self.fpr.supports_incremental():
+        lanes = self._slot_lanes(epos, fcap)
+        incr = self.incremental_fp and self.fpr.supports_incremental()
+        if incr:
             tables = self.fpr.parent_tables(sv)
             cand, counts, keys = self.expander.materialize(
                 sv, derb, okf, epos, fcap, self.FAM_CAPS,
@@ -441,12 +480,22 @@ class Engine:
         else:
             cand, counts = self.expander.materialize(
                 sv, derb, okf, epos, fcap, self.FAM_CAPS)
-            # columns past n_e must not count as hard lanes, or they
-            # would fill the fallback's buffer
+        if self.act_names:
+            # ACTION_CONSTRAINTS on the compacted (parent, successor)
+            # pairs: a violating transition is cleared before dedup
+            prow = (lanes // self.A).clamp(max=valid.shape[0] - 1)
+            elive = elive & self._act_ok(_ParentRows(sv, prow), cand)
+            n_gen = elive.sum()
+        else:
+            n_gen = n_e.clamp(max=fcap)
+        n_hard = None
+        if not incr:
+            # columns that are not live (past n_e, or cut by an action
+            # constraint) must not count as hard lanes, or they would
+            # fill the fallback's buffer
             keys, n_hard = self.fpr.fingerprint_chunk_T(cand, self.HCAP,
                                                         live=elive)
-        return (cand, elive, keys, self._slot_lanes(epos, fcap), counts,
-                n_e, n_hard)
+        return cand, elive, keys, lanes, counts, n_e, n_gen, n_hard
 
     def _caps_t(self) -> torch.Tensor:
         """FAM_CAPS as a device tensor (copied once per value: the caps
@@ -482,7 +531,7 @@ class Engine:
         return (kind, self.chunk, self.FCAP, self.OCAP,
                 tuple(self.FAM_CAPS), self.HCAP, st.lcap, st.vcap,
                 self.incremental_fp and self.fpr.supports_incremental(),
-                self.fpr.sym_canon)
+                self.fpr.sym_canon, bool(self.act_names))
 
     # ------------------------------------------------------------------
     # one frontier chunk (the reference's _chunk_step_impl)
@@ -504,7 +553,7 @@ class Engine:
         sv = self.ir.widen({k: v.index_select(-1, win)
                             for k, v in st.front.items()})
         valid = st.fmask.index_select(0, win) & (rows < st.n_front)
-        cand, elive, keys, lanes, counts, n_e, n_hard = \
+        cand, elive, keys, lanes, counts, n_e, n_gen, n_hard = \
             self._expand_fp_chunk(sv, valid, FCAP)
         torch.maximum(st.famx, counts, out=st.famx)
         # a chunk whose enabled lanes overflow FCAP or a family cap, or
@@ -514,7 +563,7 @@ class Engine:
         if n_hard is not None:
             st.hard.copy_(_hard_add(st.hard, n_hard.long()))
             st.hcovf |= n_hard > self.HCAP
-        st.n_gen += n_e.clamp(max=FCAP)
+        st.n_gen += n_gen
         # once the level replays, insert nothing, so the journal stays
         # the exact record of its table writes
         gate = ~(st.ovf | st.fovf | st.hovf | st.oovf | st.hcovf)
@@ -641,7 +690,7 @@ class Engine:
         sv = self.ir.widen({k: v.index_select(-1, win)
                             for k, v in r.fr.items()})
         valid = r.fm.index_select(0, win) & (rows < r.nf) & run
-        cand, elive, keys, lanes, counts, n_e, n_hard = \
+        cand, elive, keys, lanes, counts, n_e, n_gen, n_hard = \
             self._expand_fp_chunk(sv, valid, FCAP)
         # overflows known before the launch: nothing is inserted
         bail = (n_e > FCAP) | (counts > self._caps_t()).any()
@@ -658,7 +707,7 @@ class Engine:
             torch.cat([fresh, torch.arange(KB, device=dev) < r.nl]) & bail)
         fresh = fresh & ~bail
         n_fresh = torch.where(bail, 0, n_fresh)
-        gl2 = r.gl + torch.where(bail, 0, n_e.clamp(max=FCAP))
+        gl2 = r.gl + torch.where(bail, 0, n_gen)
         nl2 = r.nl + n_fresh
         # the second compaction, then the ring append at nl (rows past
         # n_fresh go to the spare column)
@@ -770,17 +819,59 @@ class Engine:
 
     # ------------------------------------------------------------------
 
-    def _dedup_roots(self):
-        """Init state -> (roots numpy SoA [n, ...], keys u32 [n, W]):
-        first-seen fingerprint dedup of the seed set."""
-        roots = self.ir.encode(self.lay, *self.ir.init_state(self.cfg))
-        roots = {k: np.asarray(v)[None] for k, v in roots.items()}
-        fp = self.fpr.fingerprint_batch_T(rows_to_torch(roots,
-                                                        self.device))
+    def _encode_rows(self, states) -> Dict[str, np.ndarray]:
+        """(State, Hist) pairs or raw SoA dicts -> SoA rows [n, ...]."""
+        arrs = [s if isinstance(s, dict) else
+                self.ir.encode(self.lay, *s) for s in states]
+        return {k: np.stack([np.asarray(a[k]) for a in arrs])
+                for k in arrs[0]}
+
+    def _first_seen(self, rows: Dict[str, np.ndarray]):
+        """(keys u32 [n, W], the first-seen row of each distinct
+        canonical fingerprint, ascending)."""
+        fp = self.fpr.fingerprint_batch_T(rows_to_torch(rows, self.device))
         rk = words_to_numpy(fp).T                              # [n, W]
         _u, first = np.unique(fp_key(rk), return_index=True)
         first.sort()
-        return take_arrays(roots, first), rk[first]
+        return rk, first
+
+    def _dedup_roots(self, seed_states=None):
+        """The root set: the seeds, or the cfg's prefix pins compiled to
+        seeds with their interiors (raft.tla:1198-1234; models/golden
+        docstring), or Init.  Seeds are (State, Hist) pairs or raw SoA
+        dicts (an engine-emitted seed keeps its non-VIEW lanes exactly).
+        Returns (roots numpy SoA [n, ...], keys u32 [n, W],
+        pin_interiors or None) after first-seen fingerprint dedup."""
+        pin_interiors = None
+        if seed_states is None and self.cfg.prefix_pins:
+            seed_states, pin_interiors = self.ir.prefix_pin_seeds(
+                self.cfg, with_interior=True)
+        roots = self._encode_rows(
+            seed_states if seed_states is not None
+            else [self.ir.init_state(self.cfg)])
+        rk, first = self._first_seen(roots)
+        return take_arrays(roots, first), rk[first], pin_interiors
+
+    def _check_pin_interiors(self, interiors, res: CheckResult):
+        """Invariant-check the replayed pinned-prefix interior states.
+        TLC counts and checks every prefix state; seeding at the witness
+        end skips them, so their distinct count is recorded in
+        ``pin_interior_states`` (the divergence bound) and a violation
+        among them is reported with state_id -1 (it has no BFS id)."""
+        if not interiors:
+            return
+        rows = self._encode_rows(interiors)
+        _rk, first = self._first_seen(rows)
+        res.pin_interior_states = len(first)
+        if not self.inv_names:
+            return
+        inv, _con = self._phase2_T(rows_to_torch(rows, self.device))
+        bad = (~inv).cpu().numpy()[:, first]
+        for j, nm in enumerate(self.inv_names):
+            for s in np.nonzero(bad[j])[0]:
+                sv, h = interiors[int(first[s])]
+                res.violations.append(Violation(nm, -1, state=sv, hist=h))
+                res.violations_global += 1
 
     def _archive_level(self, parents: np.ndarray, lanes: np.ndarray,
                        states: Dict[str, np.ndarray]):
@@ -790,14 +881,20 @@ class Engine:
 
     def check(self, max_depth: int = 10 ** 9, max_states: int = 10 ** 9,
               stop_on_violation: bool = False,
+              seed_states: Optional[List] = None,
               verbose: bool = False) -> CheckResult:
+        """BFS from Init, from the cfg's prefix pins, or from
+        ``seed_states``: (State, Hist) pairs or raw SoA dicts (the
+        latter keep their non-VIEW lanes exactly: engine-emitted seeds
+        for the punctuated search)."""
         t0 = time.perf_counter()
         self._states, self._parents, self._lanes = [], [], []
         self.hard_stats = [0, 0, 0]
         self._graphs = GraphRunner(self.device, self._capture)
-        roots, rk = self._dedup_roots()
+        roots, rk, pin_interiors = self._dedup_roots(seed_states)
         n_roots = len(rk)
         res = CheckResult(generated_states=n_roots)
+        self._check_pin_interiors(pin_interiors, res)
         while self.LCAP - self.OCAP < 2 * n_roots:
             self.LCAP *= 2
         while n_roots + self.LCAP - self.OCAP > \

@@ -368,6 +368,27 @@ class Predicates:
             return fn
         return lambda sv, der, rtb=None: fn(sv, der)
 
+    def action_fn(self, name: str) -> Callable:
+        """ACTION_CONSTRAINT device form: (parent_sv, cand_sv) -> ok [N]
+        over batch-last rows, the parent gathered per candidate column
+        (raft.tla:1207-1210 semantics: a violating transition is not
+        generated)."""
+        try:
+            return ACTION_CONSTRAINTS_V[name].__get__(self)
+        except KeyError:
+            raise KeyError(
+                f"unknown action constraint {name!r} for spec 'raft'; "
+                f"known: {', '.join(sorted(ACTION_CONSTRAINTS_V))}"
+            ) from None
+
+    def commit_when_concurrent_leaders_action_constraint(
+            self, parent_sv, cand_sv):
+        """raft.tla:1207-1210: past trace length 20, kill transitions
+        that leave any candidate alive (punctuated-search pruning)."""
+        deep = parent_sv["ctr"][C_GLOBLEN] >= 20
+        no_cand = all_(cand_sv["st"] != CANDIDATE)
+        return ~deep | no_cand
+
 
 INVARIANTS: Dict[str, Callable] = {
     "LeaderVotesQuorum": Predicates.leader_votes_quorum,
@@ -427,9 +448,10 @@ SCENARIO_PROPERTIES = (
     "LeaderChangesDuringConfChange",
 )
 
-# ACTION_CONSTRAINT names the cfg parser accepts; the engine does not
-# run action constraints yet (it raises on a config that names one)
-ACTION_CONSTRAINTS = ("CommitWhenConcurrentLeaders_action_constraint",)
+ACTION_CONSTRAINTS_V: Dict[str, Callable] = {
+    "CommitWhenConcurrentLeaders_action_constraint":
+        Predicates.commit_when_concurrent_leaders_action_constraint,
+}
 
 CONSTRAINTS: Dict[str, Callable] = {
     "BoundedInFlightMessages": Predicates.bounded_in_flight_messages,

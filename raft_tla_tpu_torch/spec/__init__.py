@@ -69,6 +69,8 @@ class SpecIR:
     widen: Callable                   # tensors -> kernel int32
     view_keys: Tuple[str, ...]        # state-identity arrays
     nonview_keys: Tuple[str, ...]     # history/feature arrays
+    state_to_obj: Callable            # (sv, hist) -> JSON-able dict
+    state_from_obj: Callable          # dict -> (sv, hist)
     make_kernels: Callable            # lay -> kernels object
     build_families: Callable          # lay -> List[Family]
     family_density: Mapping[str, int]  # per-family enabled-lane density
@@ -83,6 +85,17 @@ class SpecIR:
     # answer to (safety invariants and scenario properties)
     scenario_properties: Tuple[str, ...] = ()
     known_invariants: frozenset = frozenset()
+    known_constraints: frozenset = frozenset()
+    known_action_constraints: frozenset = frozenset()
+    # invariants/constraints whose oracle form scans history records an
+    # engine-emitted seed cannot carry (the CLI's seed-trace guard)
+    glob_dependent: frozenset = frozenset()
+    # the oracle twins (the differential anchor, ``--engine oracle``)
+    oracle_explore: Callable = None       # explore(cfg, **kw)
+    oracle_successors: Callable = None    # (sv, h, cfg) -> [(lbl, sv, h)]
+    oracle_walk_key: Callable = None      # sv -> hashable identity key
+    # cfg -> (seeds, interiors): the cfg's punctuated-search prefix pins
+    prefix_pin_seeds: Optional[Callable] = None
 
     @property
     def all_keys(self) -> Tuple[str, ...]:

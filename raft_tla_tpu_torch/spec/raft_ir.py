@@ -248,12 +248,16 @@ FAMILY_DENSITY = {
 
 
 def build_ir() -> SpecIR:
-    from ..models.raft import init_state, symmetry_perms
+    from ..models import predicates as OP
+    from ..models.explore import _walk_key, explore
+    from ..models.golden import prefix_pin_seeds
+    from ..models.raft import (init_state, state_from_obj, state_to_obj,
+                               successors, symmetry_perms)
     from ..ops import codec
     from ..ops.kernels import RaftKernels
     from ..ops.layout import Layout
-    from ..ops.vpredicates import (INVARIANTS, Predicates,
-                                   SCENARIO_PROPERTIES)
+    from ..ops.vpredicates import (CONSTRAINTS as VC, INVARIANTS as VI,
+                                   Predicates, SCENARIO_PROPERTIES)
 
     def make_fingerprinter(cfg, sym_canon="minperm"):
         from ..engine.fingerprint import RaftFingerprinter
@@ -273,6 +277,8 @@ def build_ir() -> SpecIR:
         widen=codec.widen_t,
         view_keys=codec.VIEW_KEYS,
         nonview_keys=codec.NONVIEW_KEYS,
+        state_to_obj=state_to_obj,
+        state_from_obj=state_from_obj,
         make_kernels=RaftKernels,
         build_families=build_families,
         family_density=dict(FAMILY_DENSITY),
@@ -281,5 +287,12 @@ def build_ir() -> SpecIR:
         symmetry_perms=symmetry_perms,
         server_signature=server_signature,
         scenario_properties=SCENARIO_PROPERTIES,
-        known_invariants=frozenset(INVARIANTS),
+        known_invariants=frozenset(VI) | frozenset(OP.INVARIANTS),
+        known_constraints=frozenset(VC) | frozenset(OP.CONSTRAINTS),
+        known_action_constraints=frozenset(OP.ACTION_CONSTRAINTS),
+        glob_dependent=frozenset(OP.GLOB_DEPENDENT),
+        oracle_explore=explore,
+        oracle_successors=successors,
+        oracle_walk_key=_walk_key,
+        prefix_pin_seeds=prefix_pin_seeds,
     )

@@ -90,6 +90,58 @@ def test_kernel_equals_twin(cuda, case):
     assert r1 == r2 == rounds and e1 == e2 == 0
 
 
+@pytest.mark.parametrize("case", [(128, 96, 24, 0.0), (1024, 400, 400, 0.0),
+                                  (64, 8, 8, 1.0), (1 << 16, 8192, 4096, 0.3),
+                                  "all_ones"])
+def test_kernel_at_128_bit_keys_equals_twin(cuda, case):
+    """``--fp128`` keys (W = 4 words): kernel == twin bit for bit, and
+    the claim rounds equal the CPU model's; "all_ones" puts 4-word
+    all-ones keys (equal to EMPTY) among live and dead lanes."""
+    W = 4
+    rng = np.random.RandomState(7)
+    if case == "all_ones":
+        vcap, m = 256, 64
+        keys_np = _keys(rng, m, W)
+        keys_np[:, [3, 17, 18, 40]] = 0xFFFFFFFF
+        live_np = np.ones(m, bool)
+        live_np[[17, 30]] = False
+        table = torch.full((W, vcap), -1, dtype=torch.int32, device=cuda)
+        probe_claim_insert_plain(
+            table, cvt.words_to_torch(_keys(rng, 80, W), cuda),
+            torch.ones(80, dtype=torch.bool, device=cuda))
+        keys = cvt.words_to_torch(keys_np, cuda)
+        live = torch.from_numpy(live_np).to(cuda)
+        want_hovf = None
+    else:
+        vcap, m, dup, load = case
+        pool = _keys(rng, int(load * vcap) + dup, W)
+        table = torch.full((W, vcap), -1, dtype=torch.int32, device=cuda)
+        n_fill = int(load * vcap)
+        if n_fill:
+            probe_claim_insert_plain(
+                table, cvt.words_to_torch(pool[:, :n_fill], cuda),
+                torch.ones(n_fill, dtype=torch.bool, device=cuda))
+        keys = cvt.words_to_torch(
+            pool[:, n_fill + rng.randint(0, dup, m)], cuda)
+        live = torch.from_numpy(rng.rand(m) > 0.2).to(cuda)
+        want_hovf = load == 1.0
+    t_k, t_p = table.clone(), table.clone()
+    PROBE_CLAIM_LAUNCHES.reset(timing=True)
+    fk, pk, hk = probe_claim_insert(t_k, keys, live)
+    torch.cuda.synchronize()
+    (r1, e1), = PROBE_CLAIM_LAUNCHES.rounds()
+    PROBE_CLAIM_LAUNCHES.reset()
+    fp, pp, hp = probe_claim_insert_plain(t_p, keys, live)
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(fk, fp) and torch.equal(pk, pp)
+    assert bool(hk) == bool(hp)
+    if want_hovf is not None:
+        assert bool(hk) == want_hovf
+    *_o, rounds = probe_claim_insert_rounds(table.cpu(), keys.cpu(),
+                                            live.cpu(), MAX_PROBE_ROUNDS)
+    assert r1 == rounds and e1 == 0
+
+
 def test_engine_on_the_card_equals_the_cpu(cuda):
     cfg = ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
                       next_family=NEXT_ASYNC, symmetry=True,
@@ -389,3 +441,37 @@ def test_burst_on_the_card_equals_the_cpu(cuda):
     assert runs[0][1][3] > 0 and runs[0][1][5] > 0
     assert runs[0][0]._graphs.replays > 0
     _same_archives(runs[0][0], runs[1][0])
+
+
+def test_captured_step_with_the_act_mask_equals_the_eager_step(cuda):
+    """The cfg-pinned search with the action constraint's mask
+    (tests/test_torch_action_constraint.py's micro, to depth 8): every
+    chunk step and burst iteration a graph replay against the same
+    steps eager and against the CPU, bit for bit."""
+    tc = ModelConfig(
+        n_servers=3, init_servers=(0, 1, 2), values=(1,),
+        next_family=NEXT_ASYNC, symmetry=True, max_inflight_override=2,
+        prefix_pins=("CommitWhenConcurrentLeaders_unique",),
+        action_constraints=(
+            "CommitWhenConcurrentLeaders_action_constraint",),
+        invariants=("CommitWhenConcurrentLeaders",),
+        bounds=Bounds.make(max_log_length=1, max_timeouts=1,
+                           max_client_requests=2, max_terms=4))
+    runs = {}
+    for name, dev, capture in (("graph", "cuda", True),
+                               ("eager", "cuda", False),
+                               ("cpu", "cpu", True)):
+        for burst in (False, True):
+            eng = Engine(tc, chunk=64, burst=burst, device=dev)
+            eng._capture = capture
+            res = eng.check(max_depth=8)
+            runs[name, burst] = (eng, (
+                res.distinct_states, res.generated_states, res.level_sizes,
+                res.pin_interior_states,
+                [(v.invariant, v.state_id) for v in res.violations]))
+    for burst in (False, True):
+        g, e, c = (runs[n, burst] for n in ("graph", "eager", "cpu"))
+        assert g[1] == e[1] == c[1]
+        assert g[0]._graphs.replays > 0 and e[0]._graphs.replays == 0
+        _same_archives(g[0], e[0])
+        _same_archives(g[0], c[0])

@@ -1,13 +1,17 @@
 """Where the time goes in the PyTorch/CUDA port's check on one GPU.
 
-    python tools/torch_profile.py [--config 1|5] [--max-depth 17]
+    python tools/torch_profile.py [--config 1|5|pinned] [--max-depth 17]
+                                  [--no-action-constraint]
                                   [--incremental-fp 0|1] [--hcap N]
                                   [--no-guard-matmul] [--no-delta-matmul]
                                   [--no-burst] [--eager]
                                   [--no-profile] [--out FILE]
 
-Runs BASELINE config #1 or #5 (the chip_smoke.py configurations and
-capacities) through ``raft_tla_tpu_torch`` on the CUDA device, in the
+Runs BASELINE config #1 or #5, or the cfg-pinned punctuated search
+(the chip_smoke.py configurations and capacities; the pinned search
+runs past its violations, and ``--no-action-constraint`` drops its
+ACTION_CONSTRAINTS mask) through ``raft_tla_tpu_torch`` on the CUDA
+device, in the
 engine's defaults (the burst, each chunk step and burst iteration a
 captured CUDA graph, the default fingerprint mode and expansion)
 unless ``--incremental-fp 0`` turns the incremental path off,
@@ -26,13 +30,17 @@ plain run's wall, the device kernels and the host's launch calls
 (kernel launches and graph launches, by runtime call) per chunk step,
 and the top kernels by device time.  A depth cut keeps the profiler's trace small; the runs
 explore the same levels (a first, unmeasured run warms the allocator
-and builds the kernels).
+and builds the kernels).  The pinned search also counts the device
+kernels and time of one eager ``_expand_fp_chunk`` on a full chunk of
+its seed rows, with the mask and without it (one engine each).
 """
 
 import argparse
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -41,8 +49,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", type=int, choices=(1, 5), default=1)
+    ap.add_argument("--config", choices=("1", "5", "pinned"), default="1")
     ap.add_argument("--max-depth", type=int, default=17)
+    ap.add_argument("--action-constraint",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="the pinned search's mask (--config pinned)")
     ap.add_argument("--incremental-fp", type=int, choices=(0, 1),
                     default=1)
     ap.add_argument("--hcap", type=int, default=None,
@@ -78,9 +89,21 @@ def main(argv=None):
     cuda_ext.library()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.path.join(root, "configs/tlc_membership/raft.cfg")
-    if args.config == 1:
+    stop = True
+    if args.config == "1":
         cfg = load_model(path, bounds=Bounds.make(**cs.CONFIG1_BOUNDS))
         engine_kw, budget = cs.CONFIG1_ENGINE, cs.CONFIG1_MAX_STATES
+    elif args.config == "pinned":
+        tmp = tempfile.mkdtemp()
+        cfg = load_model(cs.pinned_cfg(root, tmp), bounds=None)
+        shutil.rmtree(tmp)
+        b = cfg.bounds
+        cfg = cfg.with_(bounds=Bounds.make(
+            max_membership_changes=b.max_membership_changes,
+            max_trace=b.max_trace, **cs.PIN_BOUNDS))
+        if not args.action_constraint:
+            cfg = cfg.with_(action_constraints=())
+        engine_kw, budget, stop = cs.CONFIG1_ENGINE, 10 ** 9, False
     else:
         cfg = load_model(path, bounds=Bounds.make(**cs.CONFIG5_BOUNDS))
         cfg = cfg.with_(**cs.CONFIG5_SHAPE)
@@ -97,7 +120,8 @@ def main(argv=None):
         eng._capture = not args.eager
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = eng.check(max_depth=args.max_depth, max_states=budget)
+        res = eng.check(max_depth=args.max_depth, max_states=budget,
+                        stop_on_violation=stop)
         return res, time.perf_counter() - t0, eng
 
     run()                                  # warm-up: allocator, kernels
@@ -109,6 +133,7 @@ def main(argv=None):
     out = {
         "card": card,
         "config": args.config,
+        "action_constraints": list(cfg.action_constraints),
         "max_depth": args.max_depth,
         "burst": args.burst,
         "captured": not args.eager,
@@ -120,6 +145,8 @@ def main(argv=None):
         "distinct_states": res.distinct_states,
         "generated_states": res.generated_states,
         "depth": res.depth,
+        "level_sizes": res.level_sizes,
+        "violations": len(res.violations),
         "wall_s": wall,
         "states_per_s": res.distinct_states / wall,
         "levels_fused": res.levels_fused,
@@ -172,6 +199,10 @@ def main(argv=None):
             "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
                              "calls": n} for us, k, n in rows[:args.top]],
         })
+    if args.config == "pinned":
+        out["front_half"] = front_half_cost(torch, profile,
+                                            ProfilerActivity, Engine, cfg,
+                                            engine_kw)
     text = json.dumps(out, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -180,6 +211,44 @@ def main(argv=None):
             fh.write(text)
     print(text)
     return 0
+
+
+def front_half_cost(torch, profile, ProfilerActivity, Engine, cfg,
+                    engine_kw):
+    """Device kernels and device ms of one eager ``_expand_fp_chunk`` on
+    a full chunk of the seed rows, with the cfg's action constraint and
+    without it (the mask's own cost per chunk step)."""
+    from raft_tla_tpu_torch.convert import rows_to_torch
+    out = {}
+    for name, c in (("with_mask", cfg.with_(action_constraints=(
+            "CommitWhenConcurrentLeaders_action_constraint",))),
+                    ("without_mask", cfg.with_(action_constraints=()))):
+        eng = Engine(c, store_states=False, device="cuda", **engine_kw)
+        roots, _keys, _interiors = eng._dedup_roots()
+        sv = rows_to_torch(roots, "cuda")
+        n = sv["ct"].shape[-1]
+        idx = torch.arange(eng.chunk, device="cuda") % n
+        sv = eng.ir.widen({k: v.index_select(-1, idx)
+                           for k, v in sv.items()})
+        valid = torch.ones(eng.chunk, dtype=torch.bool, device="cuda")
+        eng._expand_fp_chunk(sv, valid, eng.FCAP)          # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng._expand_fp_chunk(sv, valid, eng.FCAP)
+            torch.cuda.synchronize()
+        kernels = dev_us = 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+                kernels += e.count
+                dev_us += us
+        out[name] = {"device_kernels": kernels, "device_ms": dev_us / 1e3}
+    out["mask_kernels"] = (out["with_mask"]["device_kernels"] -
+                           out["without_mask"]["device_kernels"])
+    out["mask_device_ms"] = (out["with_mask"]["device_ms"] -
+                             out["without_mask"]["device_ms"])
+    return out
 
 
 if __name__ == "__main__":
