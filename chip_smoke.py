@@ -19,10 +19,12 @@ Phases (any failure exits non-zero before the final line):
      on the card, in the engine's defaults (the burst for the small
      levels, each chunk step and burst iteration a captured CUDA graph,
      the int8 guard product and the delta group, incremental
-     fingerprints at 6 permutations), must give 2,540,315 distinct
-     states, depth 19, no violation, the reference's level sizes and
-     fused levels; the kernel's launches in this run are counted, one
-     per launch a replayed graph holds; then the same check with direct
+     fingerprints at 6 permutations, the trace archives in host RAM),
+     must give 2,540,315 distinct states, depth 19, no violation, the
+     reference's level sizes and fused levels; the kernel's launches in
+     this run are counted, one per launch a replayed graph holds, and
+     the last state's trace is kept for phase 12; then the same check
+     with direct
      fingerprints (``incremental_fp=False``), and once more with the
      plain expansion (``guard_matmul=False, delta_matmul=False``),
      which must give the same answer;
@@ -60,7 +62,21 @@ Phases (any failure exits non-zero before the final line):
  11. BASELINE config #3 (NextDynamic, Server=4 over InitServer=3, the
      membership invariant) with the reference's 1,500,000-state budget
      must give 2,875,461 distinct states, depth 17, no violation and the
-     reference's level sizes, with no level replayed for LCAP.
+     reference's level sizes, with no level replayed for LCAP;
+ 12. checkpoints: (a) config #1 as in phase 4 under ``supervised_check``
+     (checkpoints every 5 levels in a chain of 2, the trace archives in
+     a ``DiskArchive``, 2 retries) with a chaos schedule that tears the
+     second checkpoint's head and raises at the dispatch of a later
+     level: the retry resumes from ``.1`` with a ChainWarning and must
+     give phase 4's answer in 2 attempts, its last state's trace
+     through the disk archive equal to phase 4's in-RAM one; each
+     checkpoint's bytes and write seconds, the resume's seconds, the
+     captures after it and the temp directory's free space are
+     printed (the phase fails if that space cannot hold the chain and
+     the archive); (b) the pinned search of phase 10 through the CLI,
+     checkpointed at depth 6 on the card and resumed on the CPU to
+     depth 8, and the other way round: both equal phase 10a's
+     uninterrupted CPU run.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -148,6 +164,11 @@ PINNED_LEVEL_SIZES = [8, 42, 175, 621, 1946, 5526, 14479, 35520, 82529,
                       183369, 392763]
 PINNED_INTERIOR, PINNED_VIOLATIONS = 18, 4966
 PINNED_FIRST_GID = 97120
+# phase 12: the pinned search is checkpointed at this depth and resumed
+# to PINNED_CPU_DEPTH, card to CPU and CPU to card, at capacities that
+# hold depth 8 (160,822 states) with no replay
+PINNED_CKPT_DEPTH = 6
+PINNED_CKPT_CAPS = ["--lcap", str(1 << 18), "--vcap", str(1 << 20)]
 PINNED_FIRST_TRACE = ["Init", "ClientRequest(1,1)", "AppendEntries(1,2)",
                       "Receive[slot0]", "Receive[slot0]", "Receive[slot0]",
                       "AdvanceCommitIndex(1)", "AppendEntries(1,0)",
@@ -809,7 +830,8 @@ def pinned_phase(torch, fp, here, tmp, card):
         f"{n} states, {len(cres.violations)} violations, == the card's "
         f"first levels ({cpu_wall:.1f} s)")
     return dict(wall=wall, launches=launches, replays=eng._graphs.replays,
-                captures=eng._graphs.captures, cpu_wall=cpu_wall)
+                captures=eng._graphs.captures, cpu_wall=cpu_wall,
+                cpu_out=(rc_c, _cstats, ctext), argv=argv)
 
 
 def seed_phase(torch, fp, here, tmp, card):
@@ -865,6 +887,201 @@ def seed_phase(torch, fp, here, tmp, card):
                 check_launches=g["check_launches"])
 
 
+# a resumed run's burst dispatches and bailouts count its own path (a
+# resume re-enters the burst), so they are not part of the answer
+PATH_KEYS = ("burst_dispatches", "burst_bailouts")
+
+
+def supervised_phase(torch, fp, Engine, cfg, card, want_trace):
+    """Phase 12 (a): config #1 under ``supervised_check`` with the
+    archives on disk, a torn checkpoint head and a dispatch fault after
+    it; the retry resumes from ``.1``.  Returns the measurements."""
+    import warnings
+    from raft_tla_tpu_torch.resil import chaos, ckpt_chain
+    from raft_tla_tpu_torch.resil.ckpt_chain import ChainWarning
+    from raft_tla_tpu_torch.resil.supervisor import supervised_check
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"phase 12a temp directory {tmp}: {free} bytes free before "
+            f"the first checkpoint")
+        # two chain members, the temporary file of a publish and the
+        # disk archive (~333 B per state row over 2.5 M states)
+        need = 3 * 1.7e9 + 0.9e9
+        check(free > need, f"phase 12a needs {need:.0f} bytes free in "
+              f"{tmp}, has {free}")
+        ck, arch = os.path.join(tmp, "c1.ckpt"), os.path.join(tmp, "arch")
+        saves, loads, alloc = [], [], []
+        # where a save's and a resume's seconds go: the device-to-host
+        # copy, the sidecar's sha256 (a re-read), a member's digest
+        # check, the host-to-device copy into a fresh level state
+        parts = {"d2h": [], "sidecar": [], "verify": [], "h2d": []}
+
+        def timed(name, fn, sync=False):
+            def run(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                if sync:
+                    torch.cuda.synchronize()
+                parts[name].append(time.perf_counter() - t0)
+                return out
+            return run
+        patched = {"write_sidecar": ckpt_chain.write_sidecar,
+                   "verify": ckpt_chain.verify}
+        ckpt_chain.write_sidecar = timed("sidecar",
+                                         patched["write_sidecar"])
+        ckpt_chain.verify = timed("verify", patched["verify"])
+
+        def make_engine():
+            alloc.append(torch.cuda.memory_allocated())
+            eng = Engine(cfg, store_states=True, archive_dir=arch,
+                         device="cuda", **CONFIG1_ENGINE)
+            eng.ckpt_keep = 2
+            save, load = eng._save_checkpoint, eng._load_checkpoint
+
+            def timed_save(path, st, res, depth, *rest):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save(path, st, res, depth, *rest)
+                with open(path + ".sum") as fh:
+                    nbytes = json.load(fh)["bytes"]
+                saves.append((depth, nbytes, time.perf_counter() - t0))
+
+            def timed_load(path):
+                t0 = time.perf_counter()
+                out = load(path)
+                torch.cuda.synchronize()
+                loads.append((out[2]["depth"], time.perf_counter() - t0))
+                return out
+            eng._save_checkpoint, eng._load_checkpoint = \
+                timed_save, timed_load
+            eng._carry_numpy = timed("d2h", eng._carry_numpy)
+            eng._level_from_carry = timed("h2d", eng._level_from_carry,
+                                          sync=True)
+            return eng
+        # the first dispatches: the burst (levels 1-14) and then levels
+        # 15 and 16 per level; checkpoints after the burst (depth 14)
+        # and at depth 15, whose head is torn; level 17's dispatch fails
+        sched = chaos.install("ckpt_torn:at=2;dispatch:at=4")
+        ctr = fp.PROBE_CLAIM_LAUNCHES
+        torch.cuda.synchronize()
+        ctr.reset()
+        t0 = time.perf_counter()
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                res, eng, attempts = supervised_check(
+                    make_engine, retries=2, backoff=0.05,
+                    checkpoint_path=ck, checkpoint_every=5,
+                    max_states=CONFIG1_MAX_STATES)
+        finally:
+            chaos.uninstall()
+            for k, v in patched.items():
+                setattr(ckpt_chain, k, v)
+        wall = time.perf_counter() - t0
+        launches = ctr.count
+        ctr.reset()
+        check(attempts == 2, f"phase 12a took {attempts} attempts")
+        check([site for site, _ in sched.fired] == ["ckpt_torn",
+                                                    "dispatch"],
+              f"phase 12a faults {sched.fired}")
+        check(any(issubclass(x.category, ChainWarning) for x in w),
+              "phase 12a: the torn head raised no ChainWarning")
+        check([d for d, _ in loads] == [14] and
+              [d for d, _n, _s in saves] == [14, 15, 15],
+              f"phase 12a saved at {saves}, resumed from {loads}")
+        r = dict(res=res)
+        check_answer("phase 12a config #1 supervised", r, CONFIG1_DISTINCT,
+                     CONFIG1_DEPTH, CONFIG1_LEVEL_SIZES)
+        check(eng._arch is not None and eng._parents == [] and
+              eng._arch.total_rows == CONFIG1_DISTINCT,
+              "phase 12a: the archive is not on disk")
+        got_trace = eng.trace(CONFIG1_DISTINCT - 1)
+        check(got_trace == want_trace,
+              "phase 12a: the disk archive's trace differs from phase 4's")
+        captures = eng._graphs.captures
+        check(captures > 0 and eng._graphs.replays > 0,
+              "phase 12a: the resumed run captured no graph")
+        for (depth, nbytes, secs), d2h, side in zip(saves, parts["d2h"],
+                                                    parts["sidecar"]):
+            log(f"phase 12a checkpoint at depth {depth} [{card}]: {nbytes} "
+                f"bytes written in {secs:.3f} s (device-to-host copy "
+                f"{d2h:.3f} s, sha256 sidecar {side:.3f} s, savez and "
+                f"rotation {secs - d2h - side:.3f} s)")
+        checks = [round(v, 3) for v in parts["verify"]]
+        log(f"phase 12a resume [{card}]: digest checks {checks} s (the "
+            f"supervisor's latest_valid, then the resume's own), "
+            f"host-to-device into a fresh level state "
+            f"{parts['h2d'][0]:.3f} s")
+        log(f"phase 12a [{card}]: torn head at depth 15, fault at level "
+            f"17's dispatch, resumed from depth {loads[0][0]} (.1) in "
+            f"{loads[0][1]:.3f} s; device memory allocated at each "
+            f"attempt's start {alloc} bytes; graphs captured after the "
+            f"resume {captures}, replayed {eng._graphs.replays}; "
+            f"{res.distinct_states} states, depth {res.depth}, level "
+            f"sizes == phase 4's, last state's trace ({len(got_trace)} "
+            f"steps) through the disk archive == phase 4's in-RAM one; "
+            f"wall {wall:.2f} s in {attempts} attempts; probe_claim_insert "
+            f"launches {launches}")
+        return dict(free_bytes=free, saves=saves, resume_s=loads[0][1],
+                    io_parts_s=parts,
+                    resume_depth=loads[0][0], attempts=attempts,
+                    captures_after_resume=captures, wall=wall,
+                    launches=launches, alloc_at_attempt_start=alloc)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pinned_resume_phase(torch, fp, t10, tmp, card):
+    """Phase 12 (b): the pinned search checkpointed on the card and
+    resumed on the CPU, and the other way round, each to phase 10a's
+    CPU depth: both equal that uninterrupted CPU run."""
+    rc_w, stats_w, text_w = t10["cpu_out"]
+    want = (rc_w, {k: v for k, v in stats_w.items() if k not in PATH_KEYS},
+            text_w)
+    out = {}
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    for first, then in (("cuda", "cpu"), ("cpu", "cuda")):
+        ck = os.path.join(tmp, f"pinned_{first}.ckpt")
+        t0 = time.perf_counter()
+        # capacities that hold depth 8 (the resume adopts them), so the
+        # checkpoint is ~0.2 GB, not phase 4's ~1.6 GB; the counts do
+        # not depend on them
+        rc, _o, err, _seen = cli_run(t10["argv"] + PINNED_CKPT_CAPS + [
+            "--max-depth", str(PINNED_CKPT_DEPTH), "--checkpoint", ck,
+            "--checkpoint-every", str(PINNED_CKPT_DEPTH), "--device", first])
+        t1 = time.perf_counter()
+        check(rc in (0, 1) and os.path.exists(ck),
+              f"phase 12b: {first} wrote no checkpoint ({rc}: {err})")
+        ctr.reset()
+        rc, text, err, seen = cli_run(t10["argv"] + [
+            "--max-depth", str(PINNED_CPU_DEPTH), "--resume", ck,
+            "--device", then])
+        t2 = time.perf_counter()
+        launches = ctr.count
+        ctr.reset()
+        stats, rest = _stats_and_rest(text)
+        got = (rc, {k: v for k, v in stats.items() if k not in PATH_KEYS},
+               rest)
+        check(got == want, f"phase 12b: written on {first}, resumed on "
+              f"{then}: {got[:2]} != the uninterrupted CPU run's "
+              f"{want[:2]}")
+        for f in (ck, ck + ".sum"):
+            os.remove(f)
+        (eng, _res), = seen
+        if then == "cuda":
+            check(launches > 0 and eng._graphs.captures > 0,
+                  "phase 12b: the card's resume ran no captured step")
+        out[f"{first}_to_{then}"] = dict(write_s=t1 - t0, resume_s=t2 - t1,
+                                         launches=launches)
+        log(f"phase 12b pinned search written on {first} at depth "
+            f"{PINNED_CKPT_DEPTH} ({t1 - t0:.2f} s), resumed on {then} to "
+            f"depth {PINNED_CPU_DEPTH} ({t2 - t1:.2f} s): exit code, stats "
+            f"and violations == the uninterrupted CPU run "
+            f"({stats['distinct_states']} states)")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -903,13 +1120,15 @@ def main():
     cfg1 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
                       bounds=Bounds.make(**CONFIG1_BOUNDS))
     c1 = run_path(torch, fp, Engine, cfg1, CONFIG1_ENGINE,
-                  CONFIG1_MAX_STATES)
+                  CONFIG1_MAX_STATES, store_states=True)
     check(c1["incremental"], "config #1 did not run incremental")
     check(c1["eng"].guard_matmul and c1["eng"].expander.delta_active,
           "config #1 did not run the default expansion")
     report("phase 4 config #1 (incremental fingerprints)", c1, card)
     check_answer("config #1", c1, CONFIG1_DISTINCT, CONFIG1_DEPTH,
                  CONFIG1_LEVEL_SIZES)
+    # the last state's trace through the in-RAM archive, for phase 12
+    c1_trace = c1.pop("eng").trace(CONFIG1_DISTINCT - 1)
     c1d = run_path(torch, fp, Engine, cfg1,
                    dict(CONFIG1_ENGINE, incremental_fp=False),
                    CONFIG1_MAX_STATES)
@@ -978,6 +1197,8 @@ def main():
     try:
         t10 = pinned_phase(torch, fp, here, tmp, card)
         t10b = seed_phase(torch, fp, here, tmp, card)
+        # phase 12 (b) needs phase 10a's cfg and uninterrupted CPU run
+        t12b = pinned_resume_phase(torch, fp, t10, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # phase 11: BASELINE config #3, the membership workload
@@ -997,6 +1218,9 @@ def main():
           f"config #3 replayed a level for LCAP ({c3['eng'].LCAP})")
     log(f"phase 11 config #3 [{card}]: LCAP stayed 2^22; FCAP "
         f"{c3['eng'].FCAP}, OCAP {c3['eng'].OCAP}, VCAP {c3['eng'].VCAP}")
+    # phase 12: checkpoints, resume, the disk archive and a supervised
+    # retry on config #1 (b ran beside phase 10)
+    t12 = supervised_phase(torch, fp, Engine, cfg1, card, c1_trace)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -1030,7 +1254,19 @@ def main():
         "pinned_search_launches": t10["launches"],
         "seed_trace_launches": t10b["trace_launches"],
         "seeded_check_launches": t10b["check_launches"],
-        "config3_launches": c3["launches"]}],
+        "config3_launches": c3["launches"],
+        "config1_supervised_launches": t12["launches"]}],
+        "checkpoint": {
+            "config1_saves_depth_bytes_s": t12["saves"],
+            "config1_resume_s": t12["resume_s"],
+            "config1_resume_depth": t12["resume_depth"],
+            "config1_io_parts_s": t12["io_parts_s"],
+            "config1_attempts": t12["attempts"],
+            "config1_captures_after_resume": t12["captures_after_resume"],
+            "config1_supervised_wall_s": t12["wall"],
+            "config1_alloc_at_attempt_start": t12["alloc_at_attempt_start"],
+            "tmp_free_bytes": t12["free_bytes"],
+            "pinned": t12b},
         "graphs": {
             "config1_replays": c1["replays"],
             "config1_captures": c1["captures"],
@@ -1048,7 +1284,8 @@ def main():
                     "pinned_search_cpu_depth8": t10["cpu_wall"],
                     "seed_trace_card": list(t10b["walls"]),
                     "seed_trace_cpu": list(t10b["cpu_walls"]),
-                    "config3": c3["wall"]},
+                    "config3": c3["wall"],
+                    "config1_supervised": t12["wall"]},
         "guard_product": {
             "call": "torch._int_mm", "shape": t7["int_mm_shape"],
             "int_mm_ms": t7["int_mm_ms"],

@@ -21,8 +21,14 @@ flags override the cfg's as the reference CLI's do, and ``check
 is absent unless ``--device cpu`` is given); ``--sym-canon``,
 ``--guard-matmul``, ``--delta-matmul`` and ``--fam-cap-density`` pick
 the engine's forms, and ``check --burst/--no-burst`` and
-``--burst-levels`` its driver, as the reference's do.  The stats keys
-are the reference CLI's names for the fields this port fills.
+``--burst-levels`` its driver, as the reference's do.  ``check
+--checkpoint F --checkpoint-every N --ckpt-keep K`` writes checkpoints
+in the reference's format, ``--resume F`` continues one written by
+either package, ``--archive-dir D`` keeps the trace archives on disk,
+and ``--retries N --backoff S`` supervise the run (resume from the
+newest valid checkpoint after a transient failure; ``--chaos SPEC``
+injects faults to test exactly that).  The stats keys are the
+reference CLI's names for the fields this port fills.
 """
 
 from __future__ import annotations
@@ -107,10 +113,11 @@ def _load_cfg(args):
 
 
 def check_stats(counters: dict, seconds: float, n_violations: int,
-                fp_bits=None) -> dict:
+                fp_bits=None, ir_fp=None) -> dict:
     """The ``check`` stats payload, with the reference's key names and
     order: ``pin_interior_states`` only when nonzero, the fingerprint
-    and burst keys only for the engine (``fp_bits`` given)."""
+    and burst keys only for the engine (``fp_bits`` given), the spec's
+    name and its IR fingerprint (``ir_fp``) last."""
     distinct = int(counters["distinct_states"])
     gen = int(counters["generated_states"])
     out = {
@@ -132,6 +139,8 @@ def check_stats(counters: dict, seconds: float, n_violations: int,
                   "level_sizes", "sym_canon"):
             out[k] = counters[k]
     out["spec"] = "raft"
+    if ir_fp is not None:
+        out["ir_fingerprint"] = ir_fp
     return out
 
 
@@ -156,7 +165,34 @@ def _engine(cfg, args, store_states):
                   sym_canon=args.sym_canon,
                   guard_matmul=args.guard_matmul,
                   delta_matmul=args.delta_matmul,
-                  fam_density=args.fam_density, device=args.device)
+                  fam_density=args.fam_density,
+                  archive_dir=getattr(args, "archive_dir", None),
+                  device=args.device)
+
+
+def _install_chaos(args):
+    """--chaos SPEC -> the process-global schedule (resil/chaos);
+    returns an error string on a malformed spec."""
+    if not args.chaos:
+        return None
+    from .resil.chaos import ChaosSpecError, install
+    try:
+        install(args.chaos)
+    except ChaosSpecError as e:
+        return str(e)
+    return None
+
+
+def _check_retry_flags(args):
+    """The reference's refusals of --retries, --backoff, --ckpt-keep;
+    an error string or None."""
+    if args.retries < 0:
+        return f"--retries must be >= 0 (got {args.retries})"
+    if args.backoff <= 0:
+        return f"--backoff must be positive (got {args.backoff})"
+    if args.ckpt_keep < 1:
+        return f"--ckpt-keep must be >= 1 (got {args.ckpt_keep})"
+    return None
 
 
 def _fam_density(args):
@@ -253,6 +289,28 @@ def _check_target(name, ir) -> bool:
 
 def cmd_check(args) -> int:
     ir, cfg = _load_cfg(args)
+    if args.engine == "oracle" and (args.resume or args.checkpoint):
+        print("--checkpoint/--resume are tpu-engine features",
+              file=sys.stderr)
+        return 2
+    if args.resume and args.seed_trace:
+        print("--resume and --seed-trace are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    err = _check_retry_flags(args) or _install_chaos(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
+    try:
+        return _check(args, ir, cfg)
+    finally:
+        # the schedule is process-global: it lives as long as this run
+        if args.chaos:
+            from .resil.chaos import uninstall
+            uninstall()
+
+
+def _check(args, ir, cfg) -> int:
     oracle_seeds = engine_seeds = None
     if args.seed_trace:
         oracle_seeds, raw = _load_seeds(args.seed_trace, ir)
@@ -284,7 +342,8 @@ def cmd_check(args) -> int:
         out = check_stats(dict(
             distinct_states=r.distinct_states,
             generated_states=r.generated_states, depth=r.depth,
-            pin_interior_states=r.pin_interior_states), secs, len(viol))
+            pin_interior_states=r.pin_interior_states), secs, len(viol),
+            ir_fp=ir.fingerprint())
     else:
         if args.burst_levels is not None and args.burst_levels <= 0:
             print(f"--burst-levels must be positive (got "
@@ -295,10 +354,33 @@ def cmd_check(args) -> int:
         if err:
             print(err, file=sys.stderr)
             return 2
-        eng = _engine(cfg, args, store_states=not args.no_store)
-        r = eng.check(max_depth=args.max_depth, max_states=args.max_states,
-                      stop_on_violation=not args.keep_going,
-                      seed_states=engine_seeds, verbose=args.verbose)
+        from .engine.bfs import CheckpointError
+        from .resil.supervisor import RetryExhausted, supervised_check
+
+        def make_engine():
+            # one fresh engine per supervised attempt
+            eng = _engine(cfg, args, store_states=not args.no_store)
+            eng.ckpt_keep = args.ckpt_keep
+            return eng
+        try:
+            r, eng, _attempts = supervised_check(
+                make_engine, retries=args.retries, backoff=args.backoff,
+                checkpoint_path=args.checkpoint, resume_from=args.resume,
+                max_depth=args.max_depth, max_states=args.max_states,
+                stop_on_violation=not args.keep_going,
+                verbose=args.verbose, seed_states=engine_seeds,
+                checkpoint_every=args.checkpoint_every)
+        except (CheckpointError, FileNotFoundError) as e:
+            # only checkpoint load/format problems — a mid-run error
+            # after a successful resume propagates with its real trace
+            if not args.resume:
+                raise
+            print(f"cannot resume from {args.resume}: {e}",
+                  file=sys.stderr)
+            return 2
+        except RetryExhausted as e:
+            print(str(e), file=sys.stderr)
+            return 3
         viol = []
         for v in r.violations[:args.max_violations]:
             if v.state_id < 0:
@@ -321,7 +403,8 @@ def cmd_check(args) -> int:
                   f"(bounds too small for the disabled-constraint space)",
                   file=sys.stderr)
         out = check_stats(_engine_counters(r), r.seconds, len(viol),
-                          fp_bits=128 if args.fp128 else 64)
+                          fp_bits=128 if args.fp128 else 64,
+                          ir_fp=ir.fingerprint())
         out["device"] = str(eng.device)
     print(json.dumps(out))
     if args.stats_json:
@@ -394,7 +477,8 @@ def cmd_trace(args) -> int:
         with open(args.stats_json, "w") as fh:
             json.dump(check_stats(_engine_counters(r), r.seconds,
                                   len(r.violations),
-                                  fp_bits=128 if args.fp128 else 64),
+                                  fp_bits=128 if args.fp128 else 64,
+                                  ir_fp=ir.fingerprint()),
                       fh, indent=1)
     return 0
 
@@ -496,6 +580,50 @@ def main(argv=None) -> int:
                          "the seed state(s) in FILE (emitted by `trace "
                          "--emit-seed`; the engine analog of the spec's "
                          "hard-coded prefix pins, raft.tla:1198-1234)")
+    pc.add_argument("--archive-dir", default=None, metavar="DIR",
+                    help="disk-backed trace archives: stream each "
+                         "level's parent/lane/state rows to memmap'd "
+                         "files under DIR instead of growing host "
+                         "arrays (traces replay from the memmaps)")
+    pc.add_argument("--checkpoint", default=None, metavar="FILE",
+                    help="write a resumable checkpoint every "
+                         "--checkpoint-every levels, in the JAX "
+                         "package's format (TLC's states/ dir "
+                         "counterpart)")
+    pc.add_argument("--checkpoint-every", type=int, default=5,
+                    metavar="N",
+                    help="levels between checkpoints (each checkpoint "
+                         "is a full snapshot incl. the visited set and "
+                         "any in-RAM trace archives)")
+    pc.add_argument("--resume", default=None, metavar="FILE",
+                    help="resume a checkpointed run, written by this "
+                         "package or the JAX package (final counts are "
+                         "identical to an uninterrupted run).  A torn "
+                         "or corrupt head falls back to the previous "
+                         "valid checkpoint in the last-K chain with a "
+                         "named warning")
+    pc.add_argument("--ckpt-keep", type=int, default=2, metavar="K",
+                    help="checkpoint-chain depth: keep the last K "
+                         "checkpoints (FILE, FILE.1, ...), each with "
+                         "a sha256 integrity sidecar (default 2; 1 = a "
+                         "single file)")
+    pc.add_argument("--retries", type=int, default=0, metavar="N",
+                    help="supervised retry/backoff: on a transient "
+                         "failure (a device error, an I/O error), "
+                         "release the failed attempt and resume from "
+                         "the newest valid checkpoint, up to N times "
+                         "with bounded exponential backoff + jitter")
+    pc.add_argument("--backoff", type=float, default=2.0, metavar="S",
+                    help="base backoff seconds for --retries "
+                         "(doubles per attempt, capped at 60s, "
+                         "deterministic jitter)")
+    pc.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault injection: e.g. "
+                         "'dispatch:every=2;ckpt_torn:at=1' — a seeded "
+                         "schedule firing at named engine sites "
+                         "(dispatch, ckpt_torn, ckpt_corrupt, archive), "
+                         "so every recovery path is testable on the "
+                         "CPU")
     pc.add_argument("--invariant", dest="invariants",
                     action="append", default=None, metavar="NAME",
                     help="enable an extra invariant (repeatable)")

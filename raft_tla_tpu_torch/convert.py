@@ -48,6 +48,26 @@ def rows_to_numpy(svT: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return arrays_to_numpy({k: v.movedim(-1, 0) for k, v in svT.items()})
 
 
+def storage_to_numpy(arrs: Dict[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    """State tensors in their storage dtypes -> numpy in the same dtypes
+    (``bag`` as uint32: the JAX engine's archives and checkpoint leaves),
+    C-contiguous and always a copy."""
+    out = {}
+    for k, v in arrs.items():
+        a = v.to("cpu", copy=True,
+                 memory_format=torch.contiguous_format).numpy()
+        out[k] = a.view(np.uint32) if k == "bag" else a
+    return out
+
+
+def storage_rows_to_numpy(svT: Dict[str, torch.Tensor]
+                          ) -> Dict[str, np.ndarray]:
+    """Batch-last storage tensors -> batch-major rows in the storage
+    dtypes (the archives' layout), a copy."""
+    return storage_to_numpy({k: v.movedim(-1, 0) for k, v in svT.items()})
+
+
 def words_to_torch(words: U32Words, device="cpu") -> torch.Tensor:
     """A visited table or a key batch, u32 [W, n] (or a tuple of W
     u32 [n] arrays, the JAX engine's form) -> int32 [W, n] tensor."""

@@ -36,6 +36,14 @@ on the device whenever its chunks are done; the host reads the loop
 state once per ring level, and any overflow bails the level back to
 the per-level path.
 
+At level boundaries the engine writes checkpoints in the reference's
+file format (``engine/ckpt.py``): the carry's leaves under the
+reference's names and dtypes, so a run started by either package
+resumes in the other.  ``check(resume_from=)`` rebuilds the level state
+at the checkpoint's capacities and starts a fresh graph runner (a graph
+captured before holds the old buffers' addresses); trace archives live
+in host RAM or, with ``archive_dir``, in a ``DiskArchive``.
+
 This is the reference's driver (``raft_tla_tpu/engine/bfs.py``) with
 the same capacity model: ``chunk`` frontier rows per step, LCAP level
 rows (an OCAP append margin reserved), FCAP enabled candidates per
@@ -59,18 +67,29 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..convert import (arrays_to_numpy, rows_to_numpy, rows_to_torch,
-                       words_to_numpy, words_to_torch)
+from ..convert import (rows_to_torch, storage_rows_to_numpy,
+                       storage_to_numpy, words_to_numpy, words_to_torch)
 from ..ops.codec import C_OVERFLOW
+from ..resil.chaos import chaos_point
 from ..spec import spec_of
 from ..utils import (fmix32_int, fp_key, HOME_SALT, resolve_device,
                      take_arrays)
 from . import driver
+from .ckpt import (CheckpointError, _leaf_name, ckpt_archives, ckpt_carry,
+                   ckpt_read, ckpt_result, ckpt_write)
 from .expand import Expander, compact_positions
 from .fingerprint import probe_claim_insert, resolve_sym_canon
 from .graph import GraphRunner
 
 EMPTY = -1          # the all-ones u32 key, as int32: an empty table slot
+
+# the carry leaves of a checkpoint besides the table and the state
+# buffers (the reference's ``_fresh_carry`` names): per-row arrays, 0-d
+# int32 counters and 0-d bool flags
+_CARRY_ROWS = ("jslot", "linv", "lcon", "lpar", "llane", "fmask", "famx")
+_CARRY_COUNTERS = ("n_lvl", "n_gen", "ofx", "base", "g_off", "pg_off",
+                   "n_front")
+_CARRY_FLAGS = ("ovf", "fovf", "hovf", "oovf")
 
 
 @dataclass
@@ -287,6 +306,10 @@ class Engine:
     hcap     — sort mode: hard lanes per chunk that the fallback's
                fixed-width buffer holds (default: chunk); grows on
                overflow.
+    archive_dir — with ``store_states``, stream each level's parents,
+               lanes and state rows to memmap'd files under this
+               directory (``archive.DiskArchive``) instead of host
+               lists; None keeps the archives in host RAM.
     device   — "cuda" by default; "cpu" only when asked for.
 
     On the card the chunk step and the burst body run as captured CUDA
@@ -309,6 +332,7 @@ class Engine:
                  guard_matmul: bool = True, delta_matmul: bool = True,
                  delta_chunk_skip: Optional[bool] = None,
                  fam_density: Optional[Dict[str, int]] = None,
+                 archive_dir: Optional[str] = None,
                  device: Optional[str] = None):
         if burst_levels is not None and int(burst_levels) <= 0:
             raise ValueError(
@@ -319,6 +343,8 @@ class Engine:
         self.ir = spec_of(cfg)
         self.chunk = max(16, int(chunk))
         self.store_states = store_states
+        self.archive_dir = archive_dir
+        self._arch = None
         self._states: List[Dict[str, np.ndarray]] = []
         self._parents: List[np.ndarray] = []
         self._lanes: List[np.ndarray] = []
@@ -359,6 +385,10 @@ class Engine:
         self.HCAP = int(hcap) if hcap else self.chunk
         self._capture = True
         self._graphs = GraphRunner(self.device, False)
+        # checkpoint-chain depth (resil/ckpt_chain): keep the last K
+        # checkpoints (path, path.1, ...) so a torn head falls back to
+        # its predecessor; the CLI sets it (--ckpt-keep)
+        self.ckpt_keep = 2
 
     def _round_cap(self, n: int) -> int:
         c = self.chunk
@@ -873,24 +903,68 @@ class Engine:
                 res.violations.append(Violation(nm, -1, state=sv, hist=h))
                 res.violations_global += 1
 
+    # ------------------------------------------------------------------
+    # trace archives: host lists, or a DiskArchive under archive_dir —
+    # one dispatch point, so the check loop, checkpoints and trace
+    # reconstruction do not depend on the backing
+    # ------------------------------------------------------------------
+
+    def _init_store(self):
+        self._states, self._parents, self._lanes = [], [], []
+        self._arch = None
+        if self.store_states and self.archive_dir:
+            from .archive import DiskArchive
+            self._arch = DiskArchive(self.archive_dir)
+
     def _archive_level(self, parents: np.ndarray, lanes: np.ndarray,
                        states: Dict[str, np.ndarray]):
-        self._parents.append(parents)
-        self._lanes.append(lanes)
-        self._states.append(states)
+        """One level's batch-major rows, in the storage dtypes."""
+        if self._arch is not None:
+            self._arch.append_level(parents, lanes, states)
+        else:
+            self._parents.append(parents)
+            self._lanes.append(lanes)
+            self._states.append(states)
 
-    def check(self, max_depth: int = 10 ** 9, max_states: int = 10 ** 9,
-              stop_on_violation: bool = False,
-              seed_states: Optional[List] = None,
-              verbose: bool = False) -> CheckResult:
-        """BFS from Init, from the cfg's prefix pins, or from
-        ``seed_states``: (State, Hist) pairs or raw SoA dicts (the
-        latter keep their non-VIEW lanes exactly: engine-emitted seeds
-        for the punctuated search)."""
-        t0 = time.perf_counter()
-        self._states, self._parents, self._lanes = [], [], []
-        self.hard_stats = [0, 0, 0]
-        self._graphs = GraphRunner(self.device, self._capture)
+    def _ckpt_store_args(self):
+        """(parents, lanes, states, extra-meta) for ckpt_write: a disk
+        archive already persists itself level by level, so checkpoints
+        record only its level count instead of re-embedding rows."""
+        if self._arch is not None:
+            return [], [], [], dict(disk_archive=True,
+                                    arch_levels=self._arch.n_levels)
+        return self._parents, self._lanes, self._states, {}
+
+    def _load_archives(self, path, z, meta, template):
+        """Resume-side twin of _ckpt_store_args: reattach the disk
+        archive (truncating levels past the checkpoint, so a resumed
+        run re-appends them bit-identically) or unpack the embedded
+        in-RAM archives."""
+        from .archive import ArchiveError, DiskArchive
+        if meta.get("disk_archive"):
+            if not (self.store_states and self.archive_dir):
+                raise CheckpointError(
+                    f"{path}: checkpoint archives live in a disk "
+                    "archive directory — resume with the same "
+                    "archive_dir (CLI: --archive-dir)")
+            try:
+                self._arch = DiskArchive(self.archive_dir, attach=True)
+                self._arch.truncate(meta["arch_levels"])
+            except ArchiveError as e:
+                raise CheckpointError(str(e)) from e
+            self._parents, self._lanes, self._states = [], [], []
+            return
+        if self.store_states and self.archive_dir:
+            raise CheckpointError(
+                f"{path}: checkpoint holds in-RAM archives; resume "
+                "without archive_dir")
+        self._arch = None
+        self._parents, self._lanes, self._states = ckpt_archives(
+            z, meta, template, self.store_states)
+
+    def _admit_roots(self, seed_states) -> Tuple[_Level, CheckResult]:
+        """A fresh level state holding the deduplicated roots in its
+        level buffer and table, ready for the first finalize."""
         roots, rk, pin_interiors = self._dedup_roots(seed_states)
         n_roots = len(rk)
         res = CheckResult(generated_states=n_roots)
@@ -901,7 +975,6 @@ class Engine:
                 self._LOAD_MAX * self.VCAP:
             self.VCAP *= 4
         st = _Level(self, self.LCAP, self._new_table(self.VCAP))
-        ring = None
         # roots enter through the same admit path as every level: host
         # placement into the empty table, then finalize
         rows = rows_to_torch(roots, self.device)
@@ -916,9 +989,174 @@ class Engine:
         inv_r, con_r = self._phase2_T(rows)
         st.linv[:, :n_roots] = inv_r
         st.lcon[:n_roots] = con_r
-        n_states = 0
-        n_vis = 0
-        depth = 0
+        return st, res
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume (engine/ckpt.py: the reference's file format)
+    # ------------------------------------------------------------------
+
+    def _carry_numpy(self, st: _Level) -> dict:
+        """The level state as the JAX engine's carry of numpy arrays:
+        its leaf names, shapes and dtypes.  u32 words (the table, ``bag``)
+        are viewed as uint32, the 64-bit counters narrowed to int32; the
+        leaves the port does not carry get the JAX engine's fresh
+        values (``claims`` all ones, ``cidx``/``oidx`` zeros).  Every
+        array is a copy: ``.numpy()`` of a CPU tensor aliases it."""
+        def host(t):
+            return t.to("cpu", copy=True).numpy()
+        carry = dict(
+            vis=tuple(host(st.vis[w]).view(np.uint32)
+                      for w in range(self.W)),
+            claims=np.full(st.vcap, 0xFFFFFFFF, np.uint32),
+            cidx=np.zeros(self.FCAP, np.int32),
+            oidx=np.zeros(self.OCAP, np.int32),
+            lvl=storage_to_numpy(st.lvl), front=storage_to_numpy(st.front))
+        for k in _CARRY_ROWS + _CARRY_FLAGS:
+            carry[k] = host(getattr(st, k))
+        for k in _CARRY_COUNTERS:
+            carry[k] = host(getattr(st, k).to(torch.int32))
+        return carry
+
+    def _carry_template(self) -> dict:
+        """The carry's structure (leaves unread), for ``ckpt_carry``."""
+        fields = {k: None for k in self.ir.encode(
+            self.lay, *self.ir.init_state(self.cfg))}
+        keys = ("claims", "cidx", "oidx") + _CARRY_ROWS + \
+            _CARRY_COUNTERS + _CARRY_FLAGS
+        return dict(dict.fromkeys(keys), vis=(None,) * self.W, lvl=fields,
+                    front=dict(fields))
+
+    def _level_from_carry(self, path, carry: dict, meta: dict) -> _Level:
+        """A level state at the checkpoint's capacities holding the
+        carry: the flat table with its spare slot, ``vis`` its
+        [W, VCAP] view; u32 words and ``bag`` back to int32 bit
+        patterns with no value conversion."""
+        st = _Level(self, self.LCAP, self._new_table(self.VCAP))
+        dev = self.device
+
+        def load(dst: torch.Tensor, arr: np.ndarray, name: str):
+            src = torch.from_numpy(np.asarray(arr, order="C"))
+            if tuple(src.shape) != tuple(dst.shape) or \
+                    src.dtype != dst.dtype:
+                raise CheckpointError(
+                    f"{path}: checkpoint leaf {name!r} is "
+                    f"{arr.dtype}{list(arr.shape)}, the engine's "
+                    f"{dst.dtype}{list(dst.shape)} — re-run without "
+                    "--resume")
+            dst.copy_(src.to(dev))
+
+        for w in range(self.W):
+            load(st.vis[w], carry["vis"][w].view(np.int32),
+                 _leaf_name(("vis", w)))
+        for part in ("lvl", "front"):
+            for k, v in getattr(st, part).items():
+                a = carry[part][k]
+                load(v, a.view(np.int32) if k == "bag" else a,
+                     _leaf_name((part, k)))
+        for k in _CARRY_ROWS + _CARRY_FLAGS:
+            load(getattr(st, k), carry[k], _leaf_name((k,)))
+        for k in _CARRY_COUNTERS:
+            getattr(st, k).fill_(int(carry[k]))
+        st.hcovf.fill_(bool(meta.get("hcovf", False)))
+        st.n_front_h = int(meta["n_front"])
+        return st
+
+    def _restore_pin_interiors(self, res: CheckResult):
+        """A checkpoint keeps a violation's invariant and state id only;
+        the pinned-prefix interior states (state id -1, no archive row)
+        are replayed from the cfg so a resumed run prints them as an
+        uninterrupted one does."""
+        bad = [v for v in res.violations if v.state_id < 0]
+        if not bad or not self.cfg.prefix_pins:
+            return
+        _seeds, interiors = self.ir.prefix_pin_seeds(self.cfg,
+                                                     with_interior=True)
+        again = CheckResult()
+        self._check_pin_interiors(interiors, again)
+        for v, w in zip(bad, again.violations):
+            v.state, v.hist = w.state, w.hist
+
+    def _save_checkpoint(self, path, st: _Level, res: CheckResult, depth,
+                         n_states, n_vis, n_front):
+        """Read the level state back (at the level boundary, after the
+        level's one read) and write it with the reference's meta; the
+        port's HCAP and hard-lane counters ride as extra keys."""
+        parents, lanes, states, arch_meta = self._ckpt_store_args()
+        h = self.hard_stats
+        ckpt_write(path, self._carry_numpy(st), self.store_states, parents,
+                   lanes, states, res, dict(
+                       depth=depth, n_states=n_states, n_vis=n_vis,
+                       n_front=n_front, LCAP=self.LCAP, VCAP=self.VCAP,
+                       FCAP=self.FCAP, OCAP=self.OCAP,
+                       fam_caps=list(self.FAM_CAPS), **arch_meta,
+                       layout=2, chunk=self.chunk, spec=self.ir.name,
+                       sym_canon=self.fpr.sym_canon,
+                       ir_fingerprint=self.ir.fingerprint(),
+                       cfg=repr(self.cfg), HCAP=self.HCAP,
+                       hard_lanes=h[0], hard_chunks=h[1],
+                       hard_chunk_max=h[2], hcovf=bool(st.hcovf)),
+                   keep=self.ckpt_keep)
+
+    def _load_checkpoint(self, path):
+        """(level state, result so far, meta) from a checkpoint of this
+        engine's config, chunk, spec and canonicalization mode; the
+        capacities become the checkpoint's."""
+        z, meta = ckpt_read(path, repr(self.cfg), self.chunk,
+                            ("LCAP", "VCAP", "FCAP", "OCAP", "fam_caps"),
+                            sharded=False, expected_format=(
+                                "layout", 2, "this engine's batch-last/"
+                                "narrow-dtype storage layout"),
+                            spec_name=self.ir.name,
+                            sym_canon=self.fpr.sym_canon)
+        template = self._carry_template()
+        carry = ckpt_carry(path, z, template, np.asarray)
+        self.LCAP, self.VCAP, self.FCAP, self.OCAP = (
+            meta["LCAP"], meta["VCAP"], meta["FCAP"], meta["OCAP"])
+        self.FAM_CAPS = tuple(int(c) for c in meta["fam_caps"])
+        self.HCAP = int(meta.get("HCAP", self.HCAP))
+        self.hard_stats = [int(meta.get(k, 0)) for k in
+                           ("hard_lanes", "hard_chunks", "hard_chunk_max")]
+        st = self._level_from_carry(path, carry, meta)
+        del carry
+        self._load_archives(path, z, meta, template)
+        res = ckpt_result(z, meta)
+        z.close()             # all arrays extracted; don't leak the fd
+        return st, res, meta
+
+    def check(self, max_depth: int = 10 ** 9, max_states: int = 10 ** 9,
+              stop_on_violation: bool = False,
+              seed_states: Optional[List] = None,
+              checkpoint_path: Optional[str] = None,
+              checkpoint_every: int = 1,
+              resume_from: Optional[str] = None,
+              verbose: bool = False, obs=None) -> CheckResult:
+        """BFS from Init, from the cfg's prefix pins, or from
+        ``seed_states``: (State, Hist) pairs or raw SoA dicts (the
+        latter keep their non-VIEW lanes exactly: engine-emitted seeds
+        for the punctuated search).
+
+        checkpoint_path — write a checkpoint there every
+        ``checkpoint_every`` levels (a burst that crosses a multiple
+        writes one after it); resume_from — continue a checkpointed
+        run, written by this engine or by the JAX package's (the final
+        counts are those of an uninterrupted run; levels are never
+        half-resumed).  ``obs`` is accepted, as the reference's is, and
+        not used: this package has no observability bundle yet."""
+        t0 = time.perf_counter()
+        self._graphs = GraphRunner(self.device, self._capture)
+        ring = None
+        if resume_from is not None:
+            st, res, cmeta = self._load_checkpoint(resume_from)
+            n_states, n_vis = cmeta["n_states"], cmeta["n_vis"]
+            depth, n_front = cmeta["depth"], cmeta["n_front"]
+            self._restore_pin_interiors(res)
+        else:
+            self._init_store()
+            self.hard_stats = [0, 0, 0]
+            st, res = self._admit_roots(seed_states)
+            n_states = 0
+            n_vis = 0
+            depth = 0
 
         def grow_table_if_needed(st, min_add=0):
             # pessimistic load bound: a level adds at most LCAP - OCAP
@@ -939,8 +1177,8 @@ class Engine:
             res.violations_global += n_viol
             rows = None
             if self.store_states or n_viol:
-                rows = rows_to_numpy({k: v[..., :n_lvl]
-                                     for k, v in st.front.items()})
+                rows = storage_rows_to_numpy({k: v[..., :n_lvl]
+                                              for k, v in st.front.items()})
             if self.store_states:
                 self._archive_level(st.lpar[:n_lvl].cpu().numpy().copy(),
                                     st.llane[:n_lvl].cpu().numpy().copy(),
@@ -964,7 +1202,7 @@ class Engine:
             arch = None
             if self.store_states or meta[3]:
                 arch = (r.opar.cpu().numpy(), r.olane.cpu().numpy(),
-                        arrays_to_numpy(r.ost), r.oinv.cpu().numpy())
+                        storage_to_numpy(r.ost), r.oinv.cpu().numpy())
 
             def archive(li, n_lvl):
                 if self.store_states:
@@ -984,8 +1222,14 @@ class Engine:
                 res, meta[0], lambda li: stats[li, :5], depth, n_states,
                 archive=archive, violations=violations, visited=visited)
 
-        scal, inv_ok = self._finalize(st)
-        n_front = harvest(st, scal, inv_ok)
+        if resume_from is None:
+            scal, inv_ok = self._finalize(st)
+            n_front = harvest(st, scal, inv_ok)
+
+        def save(st):
+            self._save_checkpoint(checkpoint_path, st, res, depth,
+                                  n_states, n_vis, n_front)
+
         # a burst that committed levels and then bailed keeps the
         # bailing level's frontier: re-entering would bail again, so
         # that level runs on the per-level path, which re-arms the burst
@@ -993,6 +1237,11 @@ class Engine:
         while n_front and depth < max_depth and \
                 res.distinct_states < max_states and \
                 not (stop_on_violation and res.violations):
+            # chaos site: a dispatch-time device error at the level
+            # boundary (resil/chaos), raised before any device work, so
+            # the last checkpoint and archives stay consistent and the
+            # supervised runner resumes bit-exact
+            chaos_point("dispatch")
             if self.burst and burst_ok and \
                     n_front <= self._burst_width():
                 t1 = time.perf_counter()
@@ -1009,7 +1258,12 @@ class Engine:
                 if meta[0]:
                     burst_ok = not meta[1]
                     n_front = meta[2]
+                    d0 = depth
                     harvest_burst(meta, stats, ring)
+                    if checkpoint_path is not None and \
+                            driver.ckpt_due_after_burst(
+                                depth, d0, checkpoint_every):
+                        save(st)
                     if verbose:
                         print(f"burst: {meta[0]} levels to depth {depth} "
                               f"(total {res.distinct_states}), frontier "
@@ -1077,6 +1331,9 @@ class Engine:
             n_front = harvest(st, scal, inv_ok)
             depth = driver.gate_level_depth(res, depth, scal[0], scal[6],
                                             scal[7])
+            if checkpoint_path is not None and \
+                    driver.ckpt_due_at_level(depth, checkpoint_every):
+                save(st)
             if verbose:
                 print(f"depth {depth}: +{scal[0]} states (total "
                       f"{res.distinct_states}), frontier {n_front}, "
@@ -1100,6 +1357,8 @@ class Engine:
 
     def get_state_arrays(self, gid: int) -> Dict[str, np.ndarray]:
         assert self.store_states, "state store disabled"
+        if self._arch is not None:
+            return self._arch.state_row(gid)
         off = 0
         for blk in self._states:
             n = len(next(iter(blk.values())))
@@ -1109,6 +1368,17 @@ class Engine:
         raise IndexError(gid)
 
     def trace(self, gid: int) -> List[Tuple]:
+        if self._arch is not None:
+            # memmap'd walk: each hop reads one parent/lane pair and
+            # one state row — no level is ever loaded whole
+            chain = []
+            g = gid
+            while g >= 0:
+                par, lane = self._arch.parent_lane(g)
+                label = self.labels[lane] if lane >= 0 else "Init"
+                chain.append((label, self.get_state(g)[0]))
+                g = par
+            return list(reversed(chain))
         parents = np.concatenate(self._parents)
         lanes = np.concatenate(self._lanes)
         chain = []

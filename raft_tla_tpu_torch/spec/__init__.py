@@ -17,6 +17,8 @@ engine's harvest reads only these two.
 
 from __future__ import annotations
 
+import hashlib
+import json
 from dataclasses import dataclass
 from typing import Callable, Mapping, Optional, Tuple
 
@@ -96,10 +98,30 @@ class SpecIR:
     oracle_walk_key: Callable = None      # sv -> hashable identity key
     # cfg -> (seeds, interiors): the cfg's punctuated-search prefix pins
     prefix_pin_seeds: Optional[Callable] = None
+    # bumped on IR-structure changes (the reference's field)
+    version: int = 1
 
     @property
     def all_keys(self) -> Tuple[str, ...]:
         return self.view_keys + self.nonview_keys
+
+    def fingerprint(self) -> str:
+        """Short stable hash of the IR *structure* (not of any run
+        config), the reference's: stamped into ``--stats-json`` and
+        checkpoint meta so a resumed or compared run records which
+        frontend compiled it.  Equal to the reference's for the same
+        spec, since both hash the same description."""
+        desc = json.dumps([
+            self.name, self.version,
+            sorted((k, int(v)) for k, v in
+                   dict(self.family_density).items()),
+            list(self.scenario_properties),
+            sorted(self.known_invariants),
+            sorted(self.known_constraints),
+            sorted(self.known_action_constraints),
+            list(self.view_keys), list(self.nonview_keys),
+        ], separators=(",", ":"))
+        return hashlib.sha256(desc.encode()).hexdigest()[:12]
 
 
 _RAFT = None

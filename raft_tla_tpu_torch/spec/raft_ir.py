@@ -295,4 +295,5 @@ def build_ir() -> SpecIR:
         oracle_successors=successors,
         oracle_walk_key=_walk_key,
         prefix_pin_seeds=prefix_pin_seeds,
+        version=1,
     )

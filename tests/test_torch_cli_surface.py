@@ -19,7 +19,7 @@ from test_torch_cli import FLAGS, _run, cfgs  # noqa: F401
 
 torch.set_num_threads(1)
 
-VOLATILE = ("seconds", "states_per_sec", "ir_fingerprint")
+VOLATILE = ("seconds", "states_per_sec")
 
 
 def _mains():
@@ -29,9 +29,9 @@ def _mains():
 
 
 def _same_stats(got, want):
-    """The port's stats line carries the reference's keys, less its IR
-    fingerprint, with the same values."""
-    assert set(got) == set(want) - {"ir_fingerprint"}
+    """The port's stats line carries the reference's keys, its IR
+    fingerprint included, with the same values."""
+    assert set(got) == set(want)
     assert {k: v for k, v in got.items() if k not in VOLATILE} == \
         {k: v for k, v in want.items() if k not in VOLATILE}
 

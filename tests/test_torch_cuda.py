@@ -475,3 +475,41 @@ def test_captured_step_with_the_act_mask_equals_the_eager_step(cuda):
         assert g[0]._graphs.replays > 0 and e[0]._graphs.replays == 0
         _same_archives(g[0], e[0])
         _same_archives(g[0], c[0])
+
+
+@pytest.mark.parametrize("burst", [False, True], ids=["perlevel", "burst"])
+def test_resume_on_the_card_recaptures_the_step(cuda, tmp_path, burst):
+    """A checkpoint written on the card (whose steps ran as captured
+    graphs) resumes in the same engine and in a fresh one: every resume
+    starts a fresh graph runner whose first step captures again, and
+    lands on the uninterrupted counts; a checkpoint written on the CPU
+    resumes on the card too, and the card's on the CPU."""
+    cfg = ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
+                      next_family=NEXT_ASYNC, symmetry=True,
+                      max_inflight_override=2,
+                      invariants=("FirstBecomeLeader",),
+                      bounds=Bounds.make(max_log_length=1, max_timeouts=1,
+                                         max_client_requests=1))
+
+    def summary(r):
+        return (r.distinct_states, r.generated_states, r.depth,
+                r.level_sizes, [(v.invariant, v.state_id)
+                                for v in r.violations])
+    kw = dict(chunk=64, burst=burst, burst_levels=2)
+    eng = Engine(cfg, device="cuda", **kw)
+    want = summary(eng.check(max_depth=14))
+    assert eng._graphs.captures > 0 and eng._graphs.replays > 0
+    ck_card, ck_cpu = str(tmp_path / "card.ckpt"), str(tmp_path / "cpu.ckpt")
+    eng.check(max_depth=8, checkpoint_path=ck_card, checkpoint_every=8)
+    Engine(cfg, device="cpu", **kw).check(
+        max_depth=8, checkpoint_path=ck_cpu, checkpoint_every=8)
+    for path, e in ((ck_card, eng), (ck_card, Engine(cfg, device="cuda",
+                                                      **kw)),
+                    (ck_cpu, Engine(cfg, device="cuda", **kw)),
+                    (ck_card, Engine(cfg, device="cpu", **kw))):
+        before = e._graphs
+        res = e.check(max_depth=14, resume_from=path)
+        assert summary(res) == want
+        assert e._graphs is not before
+        if e.device.type == "cuda":
+            assert e._graphs.captures > 0 and e._graphs.replays > 0
