@@ -76,7 +76,20 @@ Phases (any failure exits non-zero before the final line):
      the archive); (b) the pinned search of phase 10 through the CLI,
      checkpointed at depth 6 on the card and resumed on the CPU to
      depth 8, and the other way round: both equal phase 10a's
-     uninterrupted CPU run.
+     uninterrupted CPU run;
+ 13. the random-walk simulator: (a) the README's BASELINE config #5
+     hunt (64 walkers, MembershipChangeCommits) through ``simulate`` in
+     this process must give the reference's witness (walker 7, depth
+     120), stats, labels and trace file, and the oracle must replay the
+     witness; (b) its seed file must be the reference's, and ``check
+     --seed-trace`` of it must give the same answer on the card and on
+     the CPU, launching the dedup kernel; (c) the hit-free config #5
+     fleet at 16,384 walkers: its first 64 walkers must equal a
+     64-walker fleet's, and that fleet the CPU's over its first 32
+     steps (the whole carry); walker-steps/s, one captured step's
+     device time and the peak device memory are printed; (d) the
+     captured walker step against the eager one on a micro fleet, bit
+     for bit.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -84,6 +97,7 @@ result when CUDA is absent or the package is not beside this script.
 """
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -203,6 +217,45 @@ CONFIG3_LEVEL_SIZES = [1, 2, 4, 10, 20, 35, 56, 91, 141, 213, 382, 1117,
 # (tools/measure_baseline.py ENGINE_KW[3])
 CONFIG3_ENGINE = dict(chunk=2048, lcap=1 << 22, vcap=1 << 24, ocap=1 << 14,
                       fcap=45056)
+# Phase 13: the README's random-walk hunt on BASELINE config #5's
+# scenario arm, and the reference's answer to it: the JAX package's CLI
+# on a CPU at this tree, ``python -m raft_tla_tpu simulate`` with these
+# arguments, found walker 7's witness at depth 120 with these stats; its
+# --trace-out and --emit-seed files have these sha256 digests (the
+# labels list, Init included, as json.dumps hashes to SIM_LABELS_SHA).
+SIM_CMD = ["simulate", "configs/tlc_membership/raft.cfg", "--servers", "5",
+           "--max-terms", "4", "--max-log-length", "4", "--next",
+           "NextDynamic", "--target", "MembershipChangeCommits",
+           "--walkers", "64", "--steps", "30000", "--max-depth", "40",
+           "--seed", "0"]
+SIM_MODEL_FLAGS = SIM_CMD[2:10]
+SIM_WALKER, SIM_DEPTH = 7, 120
+SIM_STATS = dict(steps_dispatched=175, walker_steps=11109,
+                 sampled_steps=25640, restarts=243, deadlocks=0,
+                 promotions=80, est_distinct_states=5927.1,
+                 bloom_canonical=True, hits=1)
+SIM_LABELS_SHA = \
+    "a343b44d506655087c01584d7abe31fe9768bc1410e185e35406a021dcabeeb8"
+SIM_LABELS_HEAD = ["Init", "Timeout(4)", "RequestVote(4,1)",
+                   "RequestVote(4,2)", "RequestVote(4,4)"]
+SIM_LABELS_TAIL = ["Receive[slot1]", "Receive[slot2]", "Receive[slot0]",
+                   "Receive[slot2]", "AdvanceCommitIndex(4)"]
+SIM_TRACE_SHA = \
+    "63cd39d4a75ef17510d42f59376e2de5516c7282c5d319ecc87d526989eeaed4"
+SIM_SEED_SHA = \
+    "d91170c3f6be3013d06efb271c02af4c22f6d9346f203af3f9e90f567e4b72ce"
+# the seeded check of the witness's end state (13b), as deep as the CPU
+# takes in seconds
+SIM_SEED_CHECK_DEPTH = 2
+# 13c: tools/bench_sim.py's "cfg5" fleet (config #5's shape, no target,
+# so no hit ends it) at H100 width; its first SIM_NARROW walkers are held
+# against a fleet of that width, and that fleet against the CPU over the
+# first SIM_CPU_STEPS steps
+SIM_FLEET = dict(walkers=16384, max_depth=48, seed=0, bloom_bits=24)
+SIM_FLEET_STEPS, SIM_FLEET_DISPATCH = 512, 256
+SIM_NARROW, SIM_CPU_STEPS = 64, 32
+# 13d: the membership micro fleet, captured against eager
+SIM_MICRO_WALKERS, SIM_MICRO_STEPS = 256, 64
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 # about 1 ms of device sleep at the H100's 1.98 GHz boost clock
@@ -711,25 +764,27 @@ def check_answer(name, r, distinct, depth, level_sizes):
     check(res.levels_fused > 0, f"{name}: no level ran on the burst")
 
 
-def cli_run(argv):
+def cli_run(argv, cls=None, method="check"):
     """The port's CLI in this process: (exit code, stdout, stderr, the
-    (engine, result) of each ``Engine.check`` it made)."""
+    (instance, result) of each call of ``cls.method`` it made; by
+    default ``Engine.check``)."""
     from raft_tla_tpu_torch import cli
-    from raft_tla_tpu_torch.engine import bfs
-    seen, orig = [], bfs.Engine.check
+    if cls is None:
+        from raft_tla_tpu_torch.engine.bfs import Engine as cls
+    seen, orig = [], getattr(cls, method)
 
     def recorded(self, *a, **kw):
         res = orig(self, *a, **kw)
         seen.append((self, res))
         return res
     out, err = io.StringIO(), io.StringIO()
-    bfs.Engine.check = recorded
+    setattr(cls, method, recorded)
     try:
         with contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
             rc = cli.main(argv)
     finally:
-        bfs.Engine.check = orig
+        setattr(cls, method, orig)
     return rc, out.getvalue(), err.getvalue(), seen
 
 
@@ -1082,6 +1137,222 @@ def pinned_resume_phase(torch, fp, t10, tmp, card):
     return out
 
 
+def _sha(path):
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+def sim_hunt_phase(torch, fp, here, tmp, card):
+    """Phase 13 (a) and (b): the README's config #5 hunt through the CLI
+    on the card, against the reference's pinned answer, its witness
+    through the oracle; then ``check --seed-trace`` of its seed on the
+    card and on the CPU, with the dedup kernel's launches counted."""
+    from raft_tla_tpu_torch.config import NEXT_DYNAMIC
+    from raft_tla_tpu_torch.models.explore import oracle_validates_walk
+    from raft_tla_tpu_torch.sim import SimEngine
+    seed, trace = os.path.join(tmp, "sim_seed.json"), \
+        os.path.join(tmp, "sim_trace.json")
+    argv = [os.path.join(here, a) if a.endswith(".cfg") else a
+            for a in SIM_CMD]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(
+        argv + ["--device", "cuda", "--emit-seed", seed, "--trace-out",
+                trace], SimEngine, "run")
+    wall = time.perf_counter() - t0
+    (eng, res), = seen
+    check(rc == 0, f"phase 13a simulate exit code {rc}: {err[-300:]}")
+    stats = json.loads(out.partition("\n")[0])
+    got = {k: stats[k] for k in SIM_STATS}
+    check(got == SIM_STATS, f"phase 13a stats {got} != the reference's "
+          f"{SIM_STATS}")
+    check(stats["platform"] == "gpu" and eng.device.type == "cuda",
+          "phase 13a did not run on the card")
+    check(eng._graphs.replays > 0, "phase 13a replayed no captured step")
+    h = res.hits[0]
+    check((h.walker, h.depth) == (SIM_WALKER, SIM_DEPTH),
+          f"phase 13a hit walker {h.walker} at depth {h.depth}")
+    with open(trace) as fh:
+        labels = json.load(fh)["labels"]
+    check(hashlib.sha256(json.dumps(labels).encode()).hexdigest() ==
+          SIM_LABELS_SHA and
+          labels[:5] == SIM_LABELS_HEAD and labels[-5:] == SIM_LABELS_TAIL,
+          f"phase 13a witness labels {labels[:5]} ... {labels[-5:]}")
+    check(_sha(trace) == SIM_TRACE_SHA and _sha(seed) == SIM_SEED_SHA,
+          "phase 13b: the trace or seed file differs from the reference's")
+    t1 = time.perf_counter()
+    walk = oracle_validates_walk(eng.cfg, [sv for _l, sv in h.trace])
+    t_oracle = time.perf_counter() - t1
+    check(len(walk) == SIM_DEPTH, "phase 13a: the oracle took fewer steps")
+    log(f"phase 13a config #5 hunt [{card}]: witness for "
+        f"MembershipChangeCommits at depth {h.depth} from walker "
+        f"{h.walker}, stats == the reference's ({stats['walker_steps']} "
+        f"walker-steps in {stats['steps_dispatched']} steps, "
+        f"{stats['sampled_steps']} sampled, {stats['restarts']} restarts, "
+        f"{stats['promotions']} promotions, est. "
+        f"{stats['est_distinct_states']} distinct); wall {wall:.2f} s, "
+        f"run {res.seconds:.2f} s, {stats['walker_steps_per_sec']} "
+        f"walker-steps/s; graphs captured {eng._graphs.captures}, "
+        f"replayed {eng._graphs.replays}; the oracle replays the witness "
+        f"({t_oracle:.1f} s)")
+    # (b) the seed through the punctuated search, card and CPU
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ctr.reset()
+        t2 = time.perf_counter()
+        rc_c, text, err_c, seen_c = cli_run(
+            ["check", argv[1]] + SIM_MODEL_FLAGS +
+            ["--seed-trace", seed, "--max-depth",
+             str(SIM_SEED_CHECK_DEPTH), "--device", dev])
+        runs[dev] = (rc_c,) + _stats_and_rest(text) + (
+            ctr.count, time.perf_counter() - t2, seen_c[0][0])
+        ctr.reset()
+    g, c = runs["cuda"], runs["cpu"]
+    check(g[:3] == c[:3], f"phase 13b card {g[:2]} != CPU {c[:2]}")
+    check(g[0] == 0 and g[1]["depth"] == SIM_SEED_CHECK_DEPTH and
+          g[5].cfg.next_family == NEXT_DYNAMIC,
+          f"phase 13b seeded check {g[:2]}")
+    check(g[3] > 0 and g[5]._graphs.replays > 0,
+          "phase 13b: the seeded check launched no dedup kernel")
+    log(f"phase 13b --emit-seed [{card}]: seed and trace files == the "
+        f"reference's (sha256); check --seed-trace to depth "
+        f"{SIM_SEED_CHECK_DEPTH}: card == CPU ({g[1]['distinct_states']} "
+        f"states, level sizes {g[1]['level_sizes']}), card {g[4]:.2f} s, "
+        f"CPU {c[4]:.2f} s; probe_claim_insert launches {g[3]}")
+    return dict(wall=wall, run_s=res.seconds,
+                walker_steps_per_sec=stats["walker_steps_per_sec"],
+                replays=eng._graphs.replays, oracle_s=t_oracle,
+                check_launches=g[3], check_walls=(g[4], c[4]))
+
+
+def _fleet_cfg(here):
+    """tools/bench_sim.py's "cfg5" workload, with the port's parser."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds, NEXT_DYNAMIC
+    return load_model(os.path.join(
+        here, "configs/tlc_membership/raft.cfg")).with_(
+        n_servers=5, init_servers=(0, 1, 2, 3, 4), next_family=NEXT_DYNAMIC,
+        max_inflight_override=50, invariants=(),
+        bounds=Bounds.make(max_log_length=4, max_timeouts=3,
+                           max_client_requests=3, max_terms=4))
+
+
+def _carry_host(st, W=None):
+    """A carry's leaves on the host, walkers [:W] (all: None)."""
+    out = {}
+    for k, v in st.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                out[f"{k}.{kk}"] = vv[..., :W].cpu()
+        elif k in ("stats", "bloom"):
+            out[k] = v.cpu()
+        elif k == "key":
+            out[k] = v[:W].cpu()
+        else:
+            out[k] = v[..., :W].cpu()
+    return out
+
+
+def _same(a, b, keys=None):
+    keys = keys or sorted(a)
+    return [k for k in keys if not (a[k].shape == b[k].shape and
+                                    bool((a[k] == b[k]).all()))]
+
+
+def sim_fleet_phase(torch, here, card):
+    """Phase 13 (c): the hit-free config #5 fleet at 16,384 walkers; its
+    first walkers against a 64-walker fleet, that fleet against the CPU
+    over its first steps; walker-steps/s, peak memory and one captured
+    step's device time."""
+    from raft_tla_tpu_torch.sim import SimEngine
+    from raft_tla_tpu_torch.sim.walker import ST_ITERS, ST_STEPS
+    cfg = _fleet_cfg(here)
+    kw = dict(SIM_FLEET, walkers=SIM_NARROW)
+    # the narrow fleet: the CPU to SIM_CPU_STEPS, the card to the end
+    cpu = SimEngine(cfg, device="cpu", **kw)
+    st_c = cpu._dispatch(cpu.fresh_carry(), SIM_CPU_STEPS, False)
+    narrow = SimEngine(cfg, device="cuda", **kw)
+    st_n = narrow._dispatch(narrow.fresh_carry(), SIM_CPU_STEPS, False)
+    bad = _same(_carry_host(st_c), _carry_host(st_n))
+    check(not bad, f"phase 13c: the {SIM_NARROW}-walker fleet on the card "
+          f"differs from the CPU after {SIM_CPU_STEPS} steps in {bad}")
+    narrow._dispatch(st_n, SIM_FLEET_STEPS - SIM_CPU_STEPS, False)
+    # the wide fleet, timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wide = SimEngine(cfg, device="cuda", **SIM_FLEET)
+    st = wide.fresh_carry()
+    t0 = time.perf_counter()
+    done = 0
+    while done < SIM_FLEET_STEPS:
+        wide._dispatch(st, SIM_FLEET_DISPATCH, False)
+        done = int(st["stats"].cpu()[ST_ITERS])   # the dispatch's read
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = int(st["stats"].cpu()[ST_STEPS])
+    keys = ["depth", "key", "traj"] + [f"sv.{k}" for k in st["sv"]]
+    bad = _same(_carry_host(st, SIM_NARROW), _carry_host(st_n), keys)
+    check(not bad, f"phase 13c: the first {SIM_NARROW} of "
+          f"{SIM_FLEET['walkers']} walkers differ from a {SIM_NARROW}-"
+          f"walker fleet in {bad}")
+    check(wide._graphs.replays == SIM_FLEET_STEPS - 1,
+          f"phase 13c replayed {wide._graphs.replays} steps")
+    # one more step, one replay, timed by CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    wide._dispatch(st, 1, False)
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1])
+    rate = steps / wall
+    log(f"phase 13c hit-free config #5 fleet [{card}]: "
+        f"{SIM_FLEET['walkers']} walkers x {SIM_FLEET_STEPS} steps "
+        f"({SIM_FLEET_DISPATCH} per dispatch): {steps} walker-steps in "
+        f"{wall:.2f} s = {rate:.0f} walker-steps/s (first capture "
+        f"included); one captured step {step_ms:.3f} ms (CUDA events); "
+        f"peak device memory {peak / 2**30:.2f} GiB; the first "
+        f"{SIM_NARROW} walkers == a {SIM_NARROW}-walker fleet (sv, depth, "
+        f"traj, key), which == the CPU over {SIM_CPU_STEPS} steps (full "
+        f"carry, Bloom included)")
+    return dict(wall=wall, walker_steps=steps, walker_steps_per_sec=rate,
+                step_ms=step_ms, peak_bytes=peak,
+                replays=wide._graphs.replays)
+
+
+def sim_graph_phase(torch, card):
+    """Phase 13 (d): the membership micro fleet (tests/test_sim.py's
+    MEMBER without a target) with the engine's capture switch off and
+    on: the final carries bit for bit, the walls."""
+    from raft_tla_tpu_torch.config import Bounds, ModelConfig, NEXT_DYNAMIC
+    from raft_tla_tpu_torch.sim import SimEngine
+    cfg = ModelConfig(
+        n_servers=3, init_servers=(0, 1), values=(1,),
+        next_family=NEXT_DYNAMIC, max_inflight_override=6,
+        bounds=Bounds.make(max_log_length=2, max_timeouts=1,
+                           max_client_requests=1, max_membership_changes=1),
+        symmetry=False)
+    out, walls = [], []
+    for capture in (False, True):
+        eng = SimEngine(cfg, walkers=SIM_MICRO_WALKERS, max_depth=30,
+                        seed=1, bloom_bits=14, device="cuda")
+        eng._capture = capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = eng._dispatch(eng.fresh_carry(), SIM_MICRO_STEPS, False)
+        out.append(_carry_host(st))
+        walls.append(time.perf_counter() - t0)
+        check(capture == (eng._graphs.replays > 0),
+              f"phase 13d replays {eng._graphs.replays}")
+    bad = _same(out[0], out[1])
+    check(not bad, f"phase 13d: captured and eager carries differ in {bad}")
+    log(f"phase 13d captured vs eager walker step [{card}]: "
+        f"{SIM_MICRO_WALKERS} walkers x {SIM_MICRO_STEPS} steps of the "
+        f"membership micro config, final carries bit for bit; wall eager "
+        f"{walls[0]:.3f} s, graph {walls[1]:.3f} s")
+    return dict(walls=walls)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1221,6 +1492,14 @@ def main():
     # phase 12: checkpoints, resume, the disk archive and a supervised
     # retry on config #1 (b ran beside phase 10)
     t12 = supervised_phase(torch, fp, Engine, cfg1, card, c1_trace)
+    # phase 13: the random-walk simulator
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t13 = sim_hunt_phase(torch, fp, here, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t13c = sim_fleet_phase(torch, here, card)
+    t13d = sim_graph_phase(torch, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -1255,7 +1534,22 @@ def main():
         "seed_trace_launches": t10b["trace_launches"],
         "seeded_check_launches": t10b["check_launches"],
         "config3_launches": c3["launches"],
-        "config1_supervised_launches": t12["launches"]}],
+        "config1_supervised_launches": t12["launches"],
+        "sim_seeded_check_launches": t13["check_launches"]}],
+        "sim": {
+            "hunt_wall_s": t13["wall"], "hunt_run_s": t13["run_s"],
+            "hunt_walker_steps_per_sec": t13["walker_steps_per_sec"],
+            "hunt_replays": t13["replays"],
+            "oracle_replay_s": t13["oracle_s"],
+            "seeded_check_walls_card_cpu_s": list(t13["check_walls"]),
+            "fleet_walkers": SIM_FLEET["walkers"],
+            "fleet_steps": SIM_FLEET_STEPS,
+            "fleet_wall_s": t13c["wall"],
+            "fleet_walker_steps": t13c["walker_steps"],
+            "fleet_walker_steps_per_sec": t13c["walker_steps_per_sec"],
+            "fleet_step_ms": t13c["step_ms"],
+            "fleet_peak_bytes": t13c["peak_bytes"],
+            "micro_wall_eager_graph_s": t13d["walls"]},
         "checkpoint": {
             "config1_saves_depth_bytes_s": t12["saves"],
             "config1_resume_s": t12["resume_s"],

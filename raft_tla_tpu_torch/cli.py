@@ -1,9 +1,16 @@
-"""Command-line front end: ``python -m raft_tla_tpu_torch check|trace``.
+"""Command-line front end: ``python -m raft_tla_tpu_torch
+check|trace|simulate``.
 
   check <cfg>  exhaustive BFS of the model; prints one JSON stats line
                (and writes it to --stats-json), then each violation
                with its trace as the reference CLI prints it; exits 1
                on an invariant violation.
+  simulate <cfg> --target NAME
+               random walkers hunt the property NAME (sim/walker.py);
+               prints the stats line, then the witness (exit 0), or
+               exit 1 when none is found within --steps; ``--trace-out``
+               and ``--emit-seed`` write the witness's labels and end
+               state.
   trace <cfg> --target NAME
                BFS until the property NAME (a scenario property or a
                safety invariant) is violated and prints the witness
@@ -142,6 +149,49 @@ def check_stats(counters: dict, seconds: float, n_violations: int,
     if ir_fp is not None:
         out["ir_fingerprint"] = ir_fp
     return out
+
+
+def sim_counters(res) -> dict:
+    """A SimResult's counters, in the reference's order."""
+    return {
+        "walkers": int(res.walkers),
+        "steps_dispatched": int(res.steps_dispatched),
+        "walker_steps": int(res.walker_steps),
+        "sampled_steps": int(res.sampled_steps),
+        "restarts": int(res.restarts),
+        "deadlocks": int(res.deadlocks),
+        "promotions": int(res.promotions),
+        "hits": len(res.hits),
+        "est_distinct_states": round(float(res.est_distinct_states), 1),
+        "bloom_saturated": bool(res.bloom_saturated),
+        "bloom_canonical": bool(res.bloom_canonical),
+    }
+
+
+def sim_stats(res, target: str, policy: str, seed: int,
+              platform: str) -> dict:
+    """The ``simulate`` stats payload, with the reference's keys in the
+    reference's order."""
+    c = sim_counters(res)
+    return {
+        "target": target,
+        "policy": policy,
+        "walkers": c["walkers"],
+        "steps_dispatched": c["steps_dispatched"],
+        "walker_steps": c["walker_steps"],
+        "sampled_steps": c["sampled_steps"],
+        "walker_steps_per_sec": round(res.walker_steps_per_sec, 1),
+        "restarts": c["restarts"],
+        "deadlocks": c["deadlocks"],
+        "promotions": c["promotions"],
+        "seconds": round(float(res.seconds), 3),
+        "est_distinct_states": c["est_distinct_states"],
+        "bloom_saturated": c["bloom_saturated"],
+        "bloom_canonical": c["bloom_canonical"],
+        "hits": c["hits"],
+        "platform": platform,
+        "seed": seed,
+    }
 
 
 def _engine_counters(res) -> dict:
@@ -483,6 +533,73 @@ def cmd_trace(args) -> int:
     return 0
 
 
+def cmd_simulate(args) -> int:
+    """TLC ``-simulate``: W random walkers hunt a scenario property past
+    the exhaustive engines' reach (sim/walker.py).  Exit 0 on a
+    witness, 1 on none within the step budget."""
+    # a clear bounds error beats a shape error from a non-positive width
+    for nm, val in (("--steps-per-dispatch", args.steps_per_dispatch),
+                    ("--walkers", args.walkers),
+                    ("--steps", args.steps)):
+        if val <= 0:
+            print(f"{nm} must be positive (got {val})",
+                  file=sys.stderr)
+            return 2
+    ir, cfg = _load_cfg(args)
+    if not _check_target(args.target, ir):
+        return 2
+    cfg = cfg.with_(invariants=(args.target,))
+    # --max-depth doubles as the walk restart bound; the check-style
+    # "unbounded" default maps to a walk-sized one
+    depth = args.max_depth if args.max_depth < 10 ** 6 else 64
+    from .sim import SimEngine
+    # --mesh: the fleet across devices is not ported; a walker's stream
+    # depends on its global id only, so one device walks the same
+    eng = SimEngine(cfg, walkers=args.walkers, max_depth=depth,
+                    seed=args.seed, policy=args.policy,
+                    bloom_bits=args.bloom_bits,
+                    guard_matmul=args.guard_matmul,
+                    delta_matmul=args.delta_matmul,
+                    sym_canon=args.sym_canon, device=args.device)
+    t0 = time.perf_counter()
+    r = eng.run(steps=args.steps,
+                steps_per_dispatch=args.steps_per_dispatch,
+                verbose=args.verbose)
+    out = sim_stats(r, target=args.target, policy=args.policy,
+                    seed=args.seed,
+                    platform="gpu" if eng.device.type == "cuda" else "cpu")
+    out["spec"] = ir.name
+    out["ir_fingerprint"] = ir.fingerprint()
+    print(json.dumps(out))
+    if args.stats_json:
+        with open(args.stats_json, "w") as fh:
+            json.dump(out, fh)
+    if not r.hits:
+        print(f"no witness found for {args.target} within "
+              f"{r.walker_steps} walker-steps", file=sys.stderr)
+        return 1
+    h = eng.decode_hit(r.hits[0])
+    print(f"witness for {args.target} at depth {h.depth} "
+          f"(walker {h.walker}, {r.walker_steps} walker-steps, "
+          f"{time.perf_counter() - t0:.1f}s):")
+    for step, (label, sv) in enumerate(h.trace):
+        print(f"  {step:3d}  {label}")
+        if args.verbose:
+            print(f"       {sv}")
+    if args.trace_out:
+        with open(args.trace_out, "w") as fh:
+            json.dump({"target": args.target, "depth": h.depth,
+                       "walker": h.walker, "seed": args.seed,
+                       "labels": [label for label, _sv in h.trace]},
+                      fh)
+        print(f"witness trace written to {args.trace_out}",
+              file=sys.stderr)
+    if args.emit_seed:
+        _write_seed(args.emit_seed,
+                    _seed_obj(ir, h.trace[-1][1], h.hist, h.state_arrs))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m raft_tla_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -641,8 +758,48 @@ def main(argv=None) -> int:
                          "for `check --seed-trace` (punctuated search)")
     # trace runs the default driver, as the reference's does
     pt.set_defaults(burst=True, burst_levels=None)
+    ps = sub.add_parser(
+        "simulate",
+        help="random-walk scenario hunt (TLC -simulate analogue): W "
+             "walkers sample enabled actions uniformly, for configs past "
+             "the exhaustive engines' reach")
+    common(ps)
+    ps.add_argument("--target", required=True)
+    ps.add_argument("--walkers", type=int, default=256,
+                    help="fleet width W")
+    ps.add_argument("--steps", type=int, default=10000,
+                    help="synchronous fleet steps before giving up")
+    ps.add_argument("--steps-per-dispatch", type=int, default=256,
+                    help="walker steps per dispatch (the host reads the "
+                         "stats once per dispatch)")
+    ps.add_argument("--seed", type=int, default=0,
+                    help="PRNG seed; a fixed seed replays the JAX "
+                         "package's trajectories bit for bit, whatever "
+                         "--walkers")
+    ps.add_argument("--policy", choices=("punctuated", "tlc"),
+                    default="punctuated",
+                    help="restart policy: 'punctuated' (default) "
+                         "resamples pruned successors and restarts "
+                         "from per-walker scenario-ladder bases; "
+                         "'tlc' is exact TLC -simulate shape (abandon "
+                         "the walk on any pruned successor)")
+    ps.add_argument("--bloom-bits", type=int, default=24,
+                    help="log2 bits of the novelty Bloom filter behind "
+                         "est_distinct_states")
+    ps.add_argument("--mesh", action="store_true",
+                    help="accepted for the reference CLI's surface: the "
+                         "fleet runs on one device whatever the count "
+                         "(a walker's stream depends on its global id "
+                         "only, so the answer is the sharded fleet's)")
+    ps.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write the witness trace (labels) as JSON")
+    ps.add_argument("--emit-seed", default=None, metavar="FILE",
+                    help="write the witness end state as a seed for "
+                         "`check --seed-trace` (simulation feeds "
+                         "punctuated exhaustive search)")
     args = ap.parse_args(argv)
-    return {"check": cmd_check, "trace": cmd_trace}[args.cmd](args)
+    return {"check": cmd_check, "trace": cmd_trace,
+            "simulate": cmd_simulate}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -80,3 +80,28 @@ def words_to_torch(words: U32Words, device="cpu") -> torch.Tensor:
 def words_to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 [W, n] tensor -> u32 [W, n] array (a copy)."""
     return t.cpu().numpy().view(np.uint32).copy()
+
+
+def sim_carry_from_jax(carry: Dict, device="cpu") -> Dict:
+    """A JAX ``SimEngine`` carry (leaves as numpy; keys u32 [W, 2]) ->
+    the port's carry on ``device``: the same leaves as int32 tensors,
+    the trajectory buffer with its spare row (-1) and the Bloom with its
+    spare entry (False) appended."""
+    def t(a, dtype=torch.int32):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(
+            device, dtype)
+
+    traj = np.asarray(carry["traj"])
+    out = {k: t(carry[k]) for k in ("depth", "key", "base_depth", "score",
+                                    "hit_inv", "hit_depth", "stats")}
+    out.update(
+        sv={k: t(v) for k, v in carry["sv"].items()},
+        base={k: t(v) for k, v in carry["base"].items()},
+        traj=t(np.concatenate([traj, np.full((1,) + traj.shape[1:], -1,
+                                             traj.dtype)])),
+        hit=t(carry["hit"], torch.bool),
+        bloom=t(np.append(np.asarray(carry["bloom"]), False), torch.bool))
+    return out

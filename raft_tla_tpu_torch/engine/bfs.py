@@ -405,16 +405,7 @@ class Engine:
 
     def _phase2_T(self, svT):
         """inv bool [n_inv, N], con bool [N]."""
-        der = self.kern.derived(svT)
-        N = svT["ct"].shape[-1]
-        inv = torch.stack([self.preds.invariant_fn(nm)(svT, der)
-                           for nm in self.inv_names]) \
-            if self.inv_names else torch.ones((0, N), dtype=torch.bool,
-                                              device=self.device)
-        con = torch.ones(N, dtype=torch.bool, device=self.device)
-        for nm in self.con_names:
-            con = con & self.preds.constraint_fn(nm)(svT, der)
-        return inv, con
+        return self.preds.check_T(svT, self.inv_names, self.con_names)
 
     def _act_ok(self, parent, cand) -> torch.Tensor:
         """ACTION_CONSTRAINTS (TLC semantics) on batch-last (parent,

@@ -176,6 +176,8 @@ class Expander:
                 used[(used >= 1) & (used < 1 + D)] - 1).to(device)
             self._dt["u_f"] = torch.from_numpy(
                 used[used >= 1 + D] - (1 + D)).to(device)
+            self._dt["lane_to_aff"] = torch.from_numpy(
+                dg["lane_to_aff"].astype(np.int64)).to(device)
         self._plans = {}
 
     @property
@@ -615,3 +617,60 @@ class Expander:
             return cand, counts
         h_all = torch.cat(fp_outs, -1)[..., take]
         return cand, counts, delta_fp[0].finish_min(h_all)
+
+    # ---- one lane per row: the random walkers' step ------------------
+
+    def derived_batch_T(self, svT) -> Dict[str, torch.Tensor]:
+        """Batch-last derived quantities (the kernels are batch-last
+        already)."""
+        return self.kern.derived(svT)
+
+    def step_lanes(self, svT, derT, lane) -> Dict[str, torch.Tensor]:
+        """Batch-last states [..., B] and flat lane ids int32 [B] -> the
+        successor rows [..., B]: each family's kernel runs once over
+        every row with that row's params (clipped into the family's
+        grid when the row chose another family; the lane-range select
+        discards that result), and a row whose lane is out of range
+        (-1: no enabled lane) comes back unchanged.  With the delta
+        group, a row whose lane belongs to an affine family steps
+        through the group's scatter-add; any other row's group lane is
+        -1, which matches no triple, so its delta is exactly zero."""
+        dg = self._dgroup
+        if dg is not None:
+            aff = self._dt["lane_to_aff"][
+                lane.clamp(0, self.n_lanes - 1).long()]
+            gl = torch.where(lane >= 0, aff, -1)
+            xflat = self._flatten_T(svT)
+            psi = self._psi_T(svT, derT, xflat)
+            out = self._unflatten_T(xflat + self._delta_of(psi, gl))
+        else:
+            out = dict(svT)
+        for fi, fam in enumerate(self.families):
+            nf, off = fam.n_lanes, int(self.lane_off[fi])
+            if dg is not None and fam.delta is not None:
+                continue
+            li = (lane - off).clamp(0, nf - 1).long()
+            sv2 = fam.fn(svT, derT, *[p[li] for p in self._params[fi]])
+            sel = (lane >= off) & (lane < off + nf)
+            out = {k: torch.where(sel, sv2[k].to(I32), out[k])
+                   for k in out}
+        return out
+
+    def expand_one(self, arrs: Dict[str, np.ndarray]):
+        """One state's encoded arrays -> [(label, successor arrays)] of
+        its enabled lanes in ascending lane order (the witness decode's
+        and the tests' path)."""
+        from ..convert import arrays_to_numpy, rows_to_torch
+        sv = rows_to_torch({k: np.asarray(v)[None] for k, v in
+                            arrs.items()}, self.device)
+        ok = self.guards_T(sv, self.derived_batch_T(sv))[0]
+        lanes = ok.nonzero().squeeze(1).to(I32)
+        n = lanes.numel()
+        svn = {k: v.expand(v.shape[:-1] + (n,)).contiguous()
+               for k, v in sv.items()}
+        succ = arrays_to_numpy(self.step_lanes(
+            svn, self.derived_batch_T(svn), lanes))
+        labels = self.lane_labels()
+        return [(labels[a], {k: np.ascontiguousarray(v[..., j])
+                             for k, v in succ.items()})
+                for j, a in enumerate(lanes.tolist())]

@@ -927,6 +927,38 @@ def raft_server_signature(fpr, svT: Dict, prep: Dict) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The random-walk engine's novelty Bloom filter (sim/walker.py): k bit
+# positions per state taken from the canonical fingerprint's independent
+# u32 streams (remixed with a round salt when k exceeds the stream
+# count), so the walkers and the exhaustive engines agree on state
+# identity.
+# ---------------------------------------------------------------------------
+
+def bloom_positions(fp: torch.Tensor, m_bits: int,
+                    k: int = 2) -> torch.Tensor:
+    """Canonical fingerprints int32-carried u32 [n_streams, B] -> [k, B]
+    int64 bit positions into a 2^m_bits Bloom array."""
+    T = fp.shape[0]
+    out = []
+    for j in range(k):
+        h = fp[j % T]
+        if j >= T:
+            h = fmix32(h ^ i32(0x9E3779B9 * (j // T)))
+        out.append(h.long() & ((1 << m_bits) - 1))
+    return torch.stack(out)
+
+
+def bloom_estimate(bits_set: int, m_bits: int, k: int = 2) -> float:
+    """The Bloom cardinality estimate n = -(m/k)·ln(1 - X/m), in float64
+    on the host; a saturated filter (X == m) clamps to X = m - 1, which
+    is a ceiling and not an estimate (the result's saturation flag says
+    so)."""
+    m = float(1 << m_bits)
+    x = float(min(bits_set, (1 << m_bits) - 1))
+    return -(m / k) * float(np.log1p(-x / m))
+
+
+# ---------------------------------------------------------------------------
 # Claim-insert dedup into the open-addressing visited table.
 #
 # The table is int32 [W, VCAP] (u32 words as int32 bits; the all-ones

@@ -100,6 +100,20 @@ def any_(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).any(0)
 
 
+def select_enabled(ok: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The ``u``-th enabled lane (0-based) of each walker's guard mask,
+    or -1 when no lane is enabled: ok bool [W, A], u int32 [W] ->
+    int32 [W].  The random-walk engine's sampling step (sim/walker.py):
+    with u uniform in [0, sum(ok)) it is the uniform choice over the
+    enabled lanes.  The reference's argmax of ``cumsum > u`` takes the
+    first such index, which is the count of running sums <= u (they
+    never decrease), and 0 when there is none."""
+    csum = torch.cumsum(ok.to(I32), 1)
+    idx = (csum <= u[:, None]).sum(1, dtype=I32)
+    idx = torch.where(idx == ok.shape[1], 0, idx)
+    return torch.where(csum[:, -1] > 0, idx, -1)
+
+
 class RaftKernels:
     """Kernel family bound to one (Layout, ModelConfig)."""
 

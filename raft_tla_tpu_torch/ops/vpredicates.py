@@ -368,6 +368,22 @@ class Predicates:
             return fn
         return lambda sv, der, rtb=None: fn(sv, der)
 
+    def check_T(self, svT, inv_names, con_names):
+        """The named invariants and the conjunction of the named
+        constraints on batch-last rows [..., N]: (inv bool [n_inv, N],
+        con bool [N])."""
+        der = self.kern.derived(svT)
+        N = svT["ct"].shape[-1]
+        dev = svT["ct"].device
+        inv = torch.stack([self.invariant_fn(nm)(svT, der)
+                           for nm in inv_names]) \
+            if inv_names else torch.ones((0, N), dtype=torch.bool,
+                                         device=dev)
+        con = torch.ones(N, dtype=torch.bool, device=dev)
+        for nm in con_names:
+            con = con & self.constraint_fn(nm)(svT, der)
+        return inv, con
+
     def action_fn(self, name: str) -> Callable:
         """ACTION_CONSTRAINT device form: (parent_sv, cand_sv) -> ok [N]
         over batch-last rows, the parent gathered per candidate column

@@ -98,6 +98,9 @@ class SpecIR:
     oracle_walk_key: Callable = None      # sv -> hashable identity key
     # cfg -> (seeds, interiors): the cfg's punctuated-search prefix pins
     prefix_pin_seeds: Optional[Callable] = None
+    # (kern, lay) -> (svT -> int32 [W]): the random walkers' monotone
+    # scenario score, which places their punctuated restart bases
+    sim_progress: Optional[Callable] = None
     # bumped on IR-structure changes (the reference's field)
     version: int = 1
 

@@ -247,6 +247,40 @@ FAMILY_DENSITY = {
 }
 
 
+# ---------------------------------------------------------------------------
+# The random-walk engine's punctuated-restart progress ladder
+# (sim/walker.py): leader elected < membership changes appended <
+# latest-ConfigEntry replication count at a current leader.
+# ---------------------------------------------------------------------------
+
+_SCORE_LEADER = 1 << 20
+_SCORE_NMC = 1 << 10
+
+
+def sim_progress(kern, lay):
+    """(kernels, layout) -> the monotone scenario score of batch-last
+    states: svT -> int32 [W]."""
+    import torch
+
+    from ..config import LEADER
+    from ..ops.codec import C_NLEADERS, C_NMC
+
+    def score(svT):
+        derT = kern.derived(svT)
+        leader_seen = (svT["ctr"][C_NLEADERS] > 0).to(torch.int32)
+        nmc = svT["ctr"][C_NMC]
+        maxcfg = derT["maxcfg"]                       # [S, W]
+        repl = (svT["mi"] >= maxcfg[:, None, :]).sum(
+            1, dtype=torch.int32)                     # [S, W]
+        is_l = (svT["st"] == LEADER) & (maxcfg > 0)
+        repl = torch.where(is_l, repl, 0).amax(0)
+        return leader_seen * _SCORE_LEADER + \
+            nmc.clamp(max=_SCORE_LEADER // _SCORE_NMC - 1) * \
+            _SCORE_NMC + repl.clamp(max=_SCORE_NMC - 1)
+
+    return score
+
+
 def build_ir() -> SpecIR:
     from ..models import predicates as OP
     from ..models.explore import _walk_key, explore
@@ -295,5 +329,6 @@ def build_ir() -> SpecIR:
         oracle_successors=successors,
         oracle_walk_key=_walk_key,
         prefix_pin_seeds=prefix_pin_seeds,
+        sim_progress=sim_progress,
         version=1,
     )

@@ -513,3 +513,75 @@ def test_resume_on_the_card_recaptures_the_step(cuda, tmp_path, burst):
         assert e._graphs is not before
         if e.device.type == "cuda":
             assert e._graphs.captures > 0 and e._graphs.replays > 0
+
+
+def _sim_member(invariants=("MembershipChange",)):
+    """tests/test_sim.py's MEMBER config (NextDynamic, 3 servers)."""
+    from raft_tla_tpu_torch.config import NEXT_DYNAMIC
+    return ModelConfig(n_servers=3, init_servers=(0, 1), values=(1,),
+                       next_family=NEXT_DYNAMIC, max_inflight_override=6,
+                       bounds=Bounds.make(max_log_length=2, max_timeouts=1,
+                                          max_client_requests=1,
+                                          max_membership_changes=1),
+                       symmetry=False, invariants=invariants)
+
+
+def _sim_leaves(st):
+    out = {}
+    for k, v in st.items():
+        for kk, vv in (v.items() if isinstance(v, dict) else [("", v)]):
+            out[k + "." + kk] = vv.cpu()
+    return out
+
+
+def test_sim_hunt_on_the_card_equals_the_cpu(cuda):
+    """The membership hunt (16 walkers, seed 1) finds the same witness
+    on the card, through captured steps, as on the CPU: walker, depth,
+    lanes, stats, Bloom estimate and the decoded trace."""
+    from raft_tla_tpu_torch.sim import SimEngine
+    out = []
+    for dev in ("cuda", "cpu"):
+        eng = SimEngine(_sim_member(), walkers=16, max_depth=30, seed=1,
+                        bloom_bits=14, device=dev)
+        r = eng.run(steps=4000, steps_per_dispatch=256)
+        h = eng.decode_hit(r.hits[0])
+        out.append((r.steps_dispatched, r.walker_steps, r.sampled_steps,
+                    r.restarts, r.promotions, r.est_distinct_states,
+                    h.walker, h.depth, h.lanes,
+                    [lbl for lbl, _sv in h.trace]))
+        if dev == "cuda":
+            assert eng._graphs.replays > 0
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("stop_on_hit", [False, True])
+def test_sim_captured_step_equals_the_eager_step(cuda, stop_on_hit):
+    """The captured walker step against the eager one on the card and
+    against the CPU: final carries bit for bit (with the target set, the
+    steps after the fleet's first hit replay gated and change nothing),
+    and the replays run without a host synchronisation."""
+    from raft_tla_tpu_torch.sim import SimEngine
+    from raft_tla_tpu_torch.sim.walker import ST_HIT
+    cfg = _sim_member(("MembershipChange",) if stop_on_hit else ())
+    out = []
+    for dev, capture in (("cuda", True), ("cuda", False), ("cpu", True)):
+        eng = SimEngine(cfg, walkers=24, max_depth=30, seed=1,
+                        bloom_bits=14, device=dev)
+        eng._capture = capture
+        # the first step: on the card the warm-up, then the capture
+        st = eng._dispatch(eng.fresh_carry(), 1, stop_on_hit)
+        if capture and dev == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng._dispatch(st, 60, stop_on_hit)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert eng._graphs.replays == 60
+        else:
+            eng._dispatch(st, 60, stop_on_hit)
+        out.append(_sim_leaves(st))
+    assert bool(out[0]["stats."][ST_HIT]) == stop_on_hit
+    for other in out[1:]:
+        assert sorted(other) == sorted(out[0])
+        for k in out[0]:
+            assert torch.equal(out[0][k], other[k]), k

@@ -43,3 +43,34 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_sim_modules_import_without_jax():
+    """The random-walk slice's modules (the engine, the PRNG) and the
+    modules it changed import with JAX and the JAX package blocked, and
+    the package walk reaches them."""
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.sim", "raft_tla_tpu_torch.sim.walker",
+               "raft_tla_tpu_torch.utils.prng"]
+        changed = ["raft_tla_tpu_torch." + m for m in (
+            "cli", "convert", "engine.expand", "engine.fingerprint",
+            "ops.kernels", "spec", "spec.raft_ir")]
+        assert set(new) <= names, sorted(set(new) - names)
+        for n in new + changed:
+            __import__(n)
+        from raft_tla_tpu_torch.sim import SimEngine
+        from raft_tla_tpu_torch.spec import get_spec
+        assert get_spec("raft").sim_progress is not None
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -1,7 +1,8 @@
 """Where the time goes in the PyTorch/CUDA port's check on one GPU.
 
-    python tools/torch_profile.py [--config 1|5|pinned] [--max-depth 17]
-                                  [--no-action-constraint]
+    python tools/torch_profile.py [--config 1|5|pinned|sim]
+                                  [--max-depth 17] [--walkers 64]
+                                  [--steps 32] [--no-action-constraint]
                                   [--incremental-fp 0|1] [--hcap N]
                                   [--no-guard-matmul] [--no-delta-matmul]
                                   [--no-burst] [--eager]
@@ -33,6 +34,13 @@ explore the same levels (a first, unmeasured run warms the allocator
 and builds the kernels).  The pinned search also counts the device
 kernels and time of one eager ``_expand_fp_chunk`` on a full chunk of
 its seed rows, with the mask and without it (one engine each).
+
+``--config sim`` profiles the random-walk engine's step instead:
+``--walkers`` walkers of chip_smoke.py's hit-free config #5 fleet
+(phase 13c) take two steps (the warm-up and the capture), then
+``--steps`` more are timed plain and once under the profiler: the wall
+per step, the device-busy time per step and its share of the wall,
+the device kernels per step and the top kernels.
 """
 
 import argparse
@@ -49,8 +57,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("1", "5", "pinned"), default="1")
+    ap.add_argument("--config", choices=("1", "5", "pinned", "sim"),
+                    default="1")
     ap.add_argument("--max-depth", type=int, default=17)
+    ap.add_argument("--walkers", type=int, default=64,
+                    help="the fleet's width (--config sim)")
+    ap.add_argument("--steps", type=int, default=32,
+                    help="fleet steps timed (--config sim)")
     ap.add_argument("--action-constraint",
                     action=argparse.BooleanOptionalAction, default=True,
                     help="the pinned search's mask (--config pinned)")
@@ -88,6 +101,9 @@ def main(argv=None):
     card = cs.card_line()
     cuda_ext.library()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if args.config == "sim":
+        return _print(sim_profile(torch, profile, ProfilerActivity, cs,
+                                  root, card, args), args)
     path = os.path.join(root, "configs/tlc_membership/raft.cfg")
     stop = True
     if args.config == "1":
@@ -168,20 +184,7 @@ def main(argv=None):
                                  ProfilerActivity.CUDA]) as prof:
             _res, wall_prof, _eng = run()
         steps = fp.PROBE_CLAIM_LAUNCHES.count
-        # device-side events only (the kernels): an operator's row
-        # repeats the device time of the kernels it launched
-        rows, calls = [], {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                # the host's launch calls into the runtime
-                if "Launch" in e.key and e.key.startswith("cu"):
-                    calls[e.key] = e.count
-                continue
-            dev_us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                rows.append((dev_us, e.key, e.count))
-        rows.sort(reverse=True)
+        rows, calls = _kernel_rows(torch, prof)
         busy_ms = sum(r[0] for r in rows) / 1e3
         n_launch = sum(r[2] for r in rows)
         out.update({
@@ -203,6 +206,10 @@ def main(argv=None):
         out["front_half"] = front_half_cost(torch, profile,
                                             ProfilerActivity, Engine, cfg,
                                             engine_kw)
+    return _print(out, args)
+
+
+def _print(out, args):
     text = json.dumps(out, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -211,6 +218,62 @@ def main(argv=None):
             fh.write(text)
     print(text)
     return 0
+
+
+def _kernel_rows(torch, prof):
+    """(rows, calls): the device kernels as (device us, name, count),
+    longest first, and the host's launch calls into the runtime by
+    name.  Device-side events only: an operator's row repeats the
+    device time of the kernels it launched."""
+    rows, calls = [], {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            if "Launch" in e.key and e.key.startswith("cu"):
+                calls[e.key] = e.count
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows, calls
+
+
+def sim_profile(torch, profile, ProfilerActivity, cs, root, card, args):
+    """The walker step of the hit-free config #5 fleet: wall and device
+    time per step, kernels per step, the top kernels."""
+    from raft_tla_tpu_torch.sim import SimEngine
+    eng = SimEngine(cs._fleet_cfg(root), device="cuda",
+                    **dict(cs.SIM_FLEET, walkers=args.walkers))
+    eng._capture = not args.eager
+    st = eng._dispatch(eng.fresh_carry(), 2, False)   # warm-up, capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._dispatch(st, args.steps, False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"card": card, "config": "sim", "walkers": args.walkers,
+           "steps": args.steps, "captured": not args.eager,
+           "wall_s": wall, "wall_ms_per_step": wall * 1e3 / args.steps,
+           "graph_replays": eng._graphs.replays}
+    if args.profile:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._dispatch(st, args.steps, False)
+            torch.cuda.synchronize()
+        rows, calls = _kernel_rows(torch, prof)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        n = sum(r[2] for r in rows)
+        out.update({
+            "device_busy_ms_per_step": busy_ms / args.steps,
+            "device_busy_share": busy_ms / (wall * 1e3),
+            "device_kernels_per_step": n / args.steps,
+            "mean_kernel_us": busy_ms * 1e3 / max(n, 1),
+            "host_launch_calls": calls,
+            "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
+                             "calls": c} for us, k, c in rows[:args.top]],
+        })
+    return out
 
 
 def front_half_cost(torch, profile, ProfilerActivity, Engine, cfg,
