@@ -9,12 +9,14 @@ Phases (any failure exits non-zero before the final line):
   3. hold the dedup kernel against its plain twin on the card: (a) a
      forced-collision fixture, (b) a contended batch, (c) a full table
      (hovf), (d) a BASELINE config #1-sized batch, (e) a same-home
-     chain, (f) a rehash-shaped reinsert of a 2^20 table into 2^21 and
-     (g) the all-ones key among dead lanes — table, fresh, pos and hovf
-     must be equal, two launches must give the same outputs, and the
-     kernel's claim rounds must equal the CPU model's
-     (``probe_claim_insert_rounds``); (d) and (f) are timed; then (b),
-     (c), (d) and (g) again with ``fp128``'s 4-word keys, (d) timed;
+     chain, (f) a rehash-shaped reinsert of a 2^20 table into 2^21,
+     (g) the all-ones key among dead lanes and (h) the spill engine's
+     shapes at config #2 depth 20 (VCAP 2^26, M 131,072) — table,
+     fresh, pos and hovf must be equal, two launches must give the same
+     outputs, and the kernel's claim rounds must equal the CPU model's
+     (``probe_claim_insert_rounds``); (d), (f) and (h) are timed; then
+     (b), (c), (d) and (g) again with ``fp128``'s 4-word keys, (d)
+     timed;
   4. the main path: ``Engine(config #1).check(max_states=2_000_000)``
      on the card, in the engine's defaults (the burst for the small
      levels, each chunk step and burst iteration a captured CUDA graph,
@@ -89,7 +91,25 @@ Phases (any failure exits non-zero before the final line):
      steps (the whole carry); walker-steps/s, one captured step's
      device time and the peak device memory are printed; (d) the
      captured walker step against the eager one on a micro fleet, bit
-     for bit.
+     for bit;
+ 14. the host-spill engine: (a) ``SpillEngine`` on BASELINE config #2
+     (chunk 4096, seg 2^22, the trace archives in host RAM) to depth
+     20 must give the reference's recorded spill run
+     (baseline_runs/round4_deep.json ``config2_depth20``): 22,475,807
+     distinct states, its 20 level sizes, no violation and no overflow
+     fault, more than one level segment spilled at level 20, levels
+     fused by the burst, and the last state's trace replayed by the
+     oracle step by step; wall, states/s, launches, segments and bytes
+     each way, summary reads, graph captures and the peaks of device
+     memory and host RSS are printed; (b) the classic engine
+     checkpoints config #2 at depth 16, then ``check --spill
+     --host-table --partitions 4 --resume-portable`` continues it
+     through the CLI to depth 19 (7,619,299 states, with at least one
+     reseed of the device cache) writing a spill checkpoint, and a
+     resume of that checkpoint prints the same stats line; the largest
+     reseed's frontier keys go through the kernel and the plain twin
+     at its VCAP (equal tables, fresh and pos), and the engine's
+     reseeded cache must be that table and hold every key.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -256,6 +276,31 @@ SIM_FLEET_STEPS, SIM_FLEET_DISPATCH = 512, 256
 SIM_NARROW, SIM_CPU_STEPS = 64, 32
 # 13d: the membership micro fleet, captured against eager
 SIM_MICRO_WALKERS, SIM_MICRO_STEPS = 256, 64
+
+# Phase 14: BASELINE config #2 (tools/measure_baseline.py build_cfg(2):
+# bounds 3/2/3, ElectionSafety alone) on the host-spill engine, and the
+# reference's recorded spill run of it (baseline_runs/round4_deep.json,
+# "config2_depth20": SpillEngine, chunk 4096, seg 2^22): distinct states
+# and post-constraint level sizes to depth 20
+CONFIG2_BOUNDS = dict(max_log_length=3, max_timeouts=2,
+                      max_client_requests=3)
+CONFIG2_FLAGS = ["--max-log-length", "3", "--max-timeouts", "2",
+                 "--max-client-requests", "3"]
+SPILL_DEPTH, SPILL_DISTINCT = 20, 22_475_807
+SPILL_LEVEL_SIZES = [1, 2, 4, 7, 12, 19, 28, 40, 57, 85, 167, 507, 1942,
+                     7579, 27966, 96189, 309574, 938079, 2694118, 7377828]
+SPILL_ENGINE = dict(chunk=4096, seg=1 << 22, store_states=True)
+# 14b: the classic checkpoint's depth (vcap 2^22, lcap 2^19 and no
+# archives keep the file small), the host-table run's depth and its
+# distinct count (baseline_runs/round3_deep.json: config #2, depth 19)
+HT_CKPT_DEPTH, HT_DEPTH, HT_DISTINCT = 16, 19, 7_619_299
+HT_CLASSIC = dict(chunk=4096, lcap=1 << 19, vcap=1 << 22,
+                  store_states=False)
+# a device cache of 2^20 slots (0.4 of them, 419,430 keys, before a
+# reseed) against levels 17-19 of 0.3-2.7 M rows: it reseeds
+HT_FLAGS = ["--spill", "--host-table", "--partitions", "4", "--chunk",
+            "4096", "--seg", str(1 << 21), "--vcap", str(1 << 20),
+            "--no-store", "--device", "cuda"]
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 # about 1 ms of device sleep at the H100's 1.98 GHz boost clock
@@ -320,11 +365,12 @@ def _probes(home, pos, vcap, max_rounds):
 
 
 def kernel_phase(torch, fp, cvt, home_slots, card, W=2,
-                 fixtures="abcdefg"):
-    """Phase 3: kernel vs plain twin on seven fixtures with W-word keys
+                 fixtures="abcdefgh"):
+    """Phase 3: kernel vs plain twin on eight fixtures with W-word keys
     (2: 64-bit fingerprints; 4: ``fp128``), or on the ``fixtures``
     named; two launches must agree, and the claim rounds must equal the
-    CPU model's.  Returns the measurements of fixtures (d) and (f)."""
+    CPU model's.  Returns the measurements of fixtures (d), (f) and
+    (h)."""
     import numpy as np
     dev = torch.device("cuda")
     rng = np.random.RandomState(2024)
@@ -434,6 +480,9 @@ def kernel_phase(torch, fp, cvt, home_slots, card, W=2,
         out.update(fixture_f(cvt, both, empty, timed, bound, rng, W, card))
     if "g" in fixtures:
         fixture_g(torch, cvt, home_slots, both, empty, rng, W, tag)
+    if "h" in fixtures:
+        h = fixture_h(torch, fp, cvt, both, timed, bound, rng, W, card)
+        out.update({f"spill_{k}": v for k, v in h.items()})
     out["max_abs_err"] = max(errs)
     return out
 
@@ -457,12 +506,30 @@ def fixture_a(cvt, both, empty, rng, W, tag):
 def fixture_d(torch, fp, cvt, both, timed, bound, rng, W, tag, card):
     """(d) config #1-sized: VCAP 2^24 filled to 35%, M 32768 with
     duplicates (in-table and in-batch); the fill runs on the kernel."""
+    return _loaded_fixture(torch, fp, cvt, both, timed, bound, rng, W,
+                           card, f"3d{tag} config #1-sized", 24, 32768,
+                           salt=4)
+
+
+def fixture_h(torch, fp, cvt, both, timed, bound, rng, W, card):
+    """(h) spill-sized: the spill engine's shapes at config #2 depth 20
+    (phase 14a), VCAP 2^26 filled to 35%, M = FCAP 131,072 (chunk
+    4096: FCAP starts at 65,536 and grows on the run's fovf trips)."""
+    return _loaded_fixture(torch, fp, cvt, both, timed, bound, rng, W,
+                           card, "3h spill-sized", 26, 131072, salt=9)
+
+
+def _loaded_fixture(torch, fp, cvt, both, timed, bound, rng, W, card,
+                    name, log2_vcap, M, salt):
+    """A 2^log2_vcap table filled to 35% by the kernel, then M keys with
+    duplicates (a quarter in the table, the rest drawn twice on average
+    from M/2 new keys): kernel == twin, and the kernel timed."""
     import numpy as np
     dev = torch.device("cuda")
     ctr = fp.PROBE_CLAIM_LAUNCHES
-    vcap, M = 1 << 24, 32768
+    vcap = 1 << log2_vcap
     n_fill = int(0.35 * vcap)
-    pool = _keys(rng, n_fill + M, W, salt=4)
+    pool = _keys(rng, n_fill + M, W, salt=salt)
     fill = cvt.words_to_torch(pool[:, :n_fill], dev)
     table = torch.full((W, vcap), -1, dtype=torch.int32, device=dev)
     fill_ms = timed(table, fill, torch.ones(n_fill, dtype=torch.bool,
@@ -473,17 +540,17 @@ def fixture_d(torch, fp, cvt, both, timed, bound, rng, W, tag, card):
     (fill_rounds, fill_err), = ctr.rounds()
     ctr.reset()
     check(fill_err == 0, "fill found no fixpoint")
-    log(f"phase 3d{tag} fill [{card}]: {n_fill} keys into an empty 2^24 "
-        f"table in {fill_ms:.3f} ms, {fill_rounds} rounds")
+    log(f"phase {name} fill [{card}]: {n_fill} keys into an empty "
+        f"2^{log2_vcap} table in {fill_ms:.3f} ms, {fill_rounds} rounds")
     pick = np.concatenate([rng.randint(0, n_fill, M // 4),
                            n_fill + rng.randint(0, M // 2, M - M // 4)])
     keys = pool[:, pick]
     live = np.ones(M, bool)
     d = both(cvt.words_to_numpy(table), keys, live)
-    check(not d["hovf"], "fixture (d) overflowed")
+    check(not d["hovf"], f"fixture {name} overflowed")
     d_ms = timed(d["src"], d["keys"], d["live"])
     d_bound, d_probes, d_bytes = bound(d, vcap)
-    log(f"phase 3d{tag} config #1-sized fixture (VCAP 2^24 at 35%, M {M}) "
+    log(f"phase {name} fixture (VCAP 2^{log2_vcap} at 35%, M {M}) "
         f"[{card}]: kernel == twin, {int(d['fresh'].sum())} fresh, "
         f"{d['rounds']} rounds; kernel {d_ms:.4f} ms (median of 5), plain "
         f"twin {d['plain_ms']:.1f} ms, {d_probes} probes, {d_bytes} bytes "
@@ -790,10 +857,12 @@ def cli_run(argv, cls=None, method="check"):
 
 def _stats_and_rest(text):
     """The check's stats line (less what a run cannot repeat: its
-    seconds, its rate and its device) and the text after it."""
+    seconds, its rate and its device: ``dedup_kernel`` is 1 where the
+    hand kernel ran, on the card, and 0 on the CPU) and the text after
+    it."""
     head, _, rest = text.partition("\n")
     stats = json.loads(head)
-    for k in ("seconds", "states_per_sec", "device"):
+    for k in ("seconds", "states_per_sec", "dedup_kernel"):
         stats.pop(k)
     return stats, rest
 
@@ -852,7 +921,7 @@ def pinned_phase(torch, fp, here, tmp, card):
           PINNED_FIRST_TRACE, f"first witness {first.state_id}")
     check(stats["pin_interior_states"] == PINNED_INTERIOR and
           stats["violations"] == 5 and
-          stats["level_sizes"] == PINNED_LEVEL_SIZES,
+          res.level_sizes == PINNED_LEVEL_SIZES,
           f"pinned stats line {stats}")
     check(launches > 0 and eng._graphs.replays > 0,
           "the pinned search ran no captured step")
@@ -1206,10 +1275,12 @@ def sim_hunt_phase(torch, fp, here, tmp, card):
             ["--seed-trace", seed, "--max-depth",
              str(SIM_SEED_CHECK_DEPTH), "--device", dev])
         runs[dev] = (rc_c,) + _stats_and_rest(text) + (
-            ctr.count, time.perf_counter() - t2, seen_c[0][0])
+            ctr.count, time.perf_counter() - t2, seen_c[0][0],
+            seen_c[0][1].level_sizes)
         ctr.reset()
     g, c = runs["cuda"], runs["cpu"]
-    check(g[:3] == c[:3], f"phase 13b card {g[:2]} != CPU {c[:2]}")
+    check(g[:3] == c[:3] and g[6] == c[6],
+          f"phase 13b card {g[:2]} != CPU {c[:2]}")
     check(g[0] == 0 and g[1]["depth"] == SIM_SEED_CHECK_DEPTH and
           g[5].cfg.next_family == NEXT_DYNAMIC,
           f"phase 13b seeded check {g[:2]}")
@@ -1218,7 +1289,7 @@ def sim_hunt_phase(torch, fp, here, tmp, card):
     log(f"phase 13b --emit-seed [{card}]: seed and trace files == the "
         f"reference's (sha256); check --seed-trace to depth "
         f"{SIM_SEED_CHECK_DEPTH}: card == CPU ({g[1]['distinct_states']} "
-        f"states, level sizes {g[1]['level_sizes']}), card {g[4]:.2f} s, "
+        f"states, level sizes {g[6]}), card {g[4]:.2f} s, "
         f"CPU {c[4]:.2f} s; probe_claim_insert launches {g[3]}")
     return dict(wall=wall, run_s=res.seconds,
                 walker_steps_per_sec=stats["walker_steps_per_sec"],
@@ -1351,6 +1422,223 @@ def sim_graph_phase(torch, card):
         f"membership micro config, final carries bit for bit; wall eager "
         f"{walls[0]:.3f} s, graph {walls[1]:.3f} s")
     return dict(walls=walls)
+
+
+def _config2_cfg(here, tmp):
+    """configs/tlc_membership/raft.cfg with ElectionSafety its only
+    invariant (config #2's), beside its spec stub."""
+    lines, out, skip = open(os.path.join(
+        here, "configs/tlc_membership/raft.cfg")).read().split("\n"), [], False
+    for ln in lines:
+        if ln.strip() == "INVARIANTS":
+            out += [ln, "    ElectionSafety"]
+            skip = True
+            continue
+        if skip and ln.startswith("    "):
+            continue
+        skip = False
+        out.append(ln)
+    path = os.path.join(tmp, "raft.cfg")
+    with open(path, "w") as fh:
+        fh.write("\n".join(out))
+    shutil.copy(os.path.join(here, "configs/tlc_membership/raft.tla"), tmp)
+    return path
+
+
+def _peak_rss_bytes():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def spill_phase(torch, fp, here, tmp, card):
+    """Phase 14 (a): config #2 to depth 20 on the host-spill engine
+    against the reference's recorded spill run; the last state's trace
+    through the spill archive, replayed by the oracle."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    from raft_tla_tpu_torch.models.explore import oracle_validates_walk
+    cfg = load_model(_config2_cfg(here, tmp),
+                     bounds=Bounds.make(**CONFIG2_BOUNDS))
+    check(cfg.invariants == ("ElectionSafety",), f"config #2 {cfg}")
+    eng = SpillEngine(cfg, device="cuda", **SPILL_ENGINE)
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctr.reset()
+    t0 = time.perf_counter()
+    res = eng.check(max_depth=SPILL_DEPTH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    peak_dev = torch.cuda.max_memory_allocated()
+    check(res.distinct_states == SPILL_DISTINCT and
+          res.depth == SPILL_DEPTH and
+          res.level_sizes == SPILL_LEVEL_SIZES,
+          f"phase 14a: {res} level sizes {res.level_sizes}")
+    check(not res.violations and res.violations_global == 0 and
+          res.overflow_faults == 0, "phase 14a: violations or faults")
+    segs20 = eng.segments_by_level.get(SPILL_DEPTH, 0)
+    check(segs20 > 1, f"phase 14a: {segs20} segment(s) spilled at level 20")
+    check(res.levels_fused > 0, "phase 14a: no level ran on the burst")
+    check(launches > 0 and eng._graphs.captures > 0,
+          "phase 14a: no captured spill step launched the kernel")
+    # phase 3h held the kernel against its twin at these shapes
+    check(eng.VCAP <= 1 << 26 and eng.FCAP <= 131072,
+          f"phase 14a outgrew phase 3h's shapes: VCAP {eng.VCAP}, FCAP "
+          f"{eng.FCAP}")
+    t1 = time.perf_counter()
+    trace = eng.trace(SPILL_DISTINCT - 1)
+    # Init, then one state for each of the 20 levels below it
+    check(len(trace) == SPILL_DEPTH + 1 and trace[0][0] == "Init",
+          f"phase 14a: a trace of {len(trace)} states")
+    walk = oracle_validates_walk(cfg, [sv for _l, sv in trace])
+    check(len(walk) == SPILL_DEPTH, "phase 14a: the oracle stopped")
+    t_trace = time.perf_counter() - t1
+    rss = _peak_rss_bytes()
+    log(f"phase 14a spill engine [{card}]: config #2 to depth "
+        f"{res.depth}, {res.distinct_states} distinct, level sizes == the "
+        f"reference's spill run, 0 violations, 0 faults; wall {wall:.2f} s "
+        f"({res.seconds:.2f} s in check), "
+        f"{res.distinct_states / wall:.0f} states/s; probe_claim_insert "
+        f"launches {launches}; levels fused {res.levels_fused}; segments "
+        f"spilled {eng.segments_spilled} ({segs20} at level 20), bytes "
+        f"down {eng.bytes_down}, up {eng.bytes_up}; summary reads "
+        f"{eng.summary_syncs}; graphs captured {eng._graphs.captures}; "
+        f"peak device memory {peak_dev} B, peak host RSS {rss} B; final "
+        f"VCAP {eng.VCAP}, FCAP {eng.FCAP}, trips {dict(eng.trips)}; "
+        f"host seconds "
+        f"{ {k: round(v, 3) for k, v in eng.host_seconds.items()} }; the "
+        f"last state's trace ({len(trace)} states) replayed by the oracle "
+        f"in {t_trace:.1f} s")
+    return dict(wall=wall, run_s=res.seconds, launches=launches,
+                segments=eng.segments_spilled, segments_level20=segs20,
+                bytes_down=eng.bytes_down, bytes_up=eng.bytes_up,
+                syncs=eng.summary_syncs, captures=eng._graphs.captures,
+                peak_device_bytes=peak_dev, peak_rss_bytes=rss,
+                host_s={k: round(v, 3) for k, v in eng.host_seconds.items()},
+                levels_fused=res.levels_fused, trace_s=t_trace)
+
+
+def host_table_phase(torch, fp, here, tmp, card):
+    """Phase 14 (b): the classic engine's checkpoint of config #2 at
+    depth 16, resumed through ``check --spill --host-table
+    --resume-portable`` to depth 19 (a spill checkpoint written at depth
+    18), then that checkpoint resumed to depth 19: the same stats."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.engine.bfs import Engine
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    cfg_path = _config2_cfg(here, tmp)
+    cfg = load_model(cfg_path, bounds=Bounds.make(**CONFIG2_BOUNDS))
+    ck, ck2 = os.path.join(tmp, "classic.ckpt"), os.path.join(tmp,
+                                                              "spill.ckpt")
+    t0 = time.perf_counter()
+    Engine(cfg, device="cuda", **HT_CLASSIC).check(
+        max_depth=HT_CKPT_DEPTH, checkpoint_path=ck,
+        checkpoint_every=HT_CKPT_DEPTH)
+    classic_s = time.perf_counter() - t0
+    ck_bytes = os.path.getsize(ck)
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    argv = ["check", cfg_path] + CONFIG2_FLAGS + HT_FLAGS + [
+        "--max-depth", str(HT_DEPTH)]
+    torch.cuda.synchronize()
+    reseed, orig_reseed = {}, SpillEngine._reseed_dev_table
+
+    def recorded_reseed(self, st, fkeys):
+        """The largest reseed's frontier keys, VCAP and device cache."""
+        n = orig_reseed(self, st, fkeys)
+        if n >= reseed.get("n", -1):
+            reseed.update(n=n, keys=fkeys.copy(), vcap=st.vcap,
+                          table=st.vis.cpu())
+        return n
+    ctr.reset()
+    t0 = time.perf_counter()
+    SpillEngine._reseed_dev_table = recorded_reseed
+    try:
+        rc, out, err, seen = cli_run(argv + [
+            "--resume", ck, "--resume-portable", "--checkpoint", ck2,
+            "--checkpoint-every", "2"], cls=SpillEngine)
+    finally:
+        SpillEngine._reseed_dev_table = orig_reseed
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    check(rc == 0 and len(seen) == 1, f"phase 14b exit {rc}: {err[-2000:]}")
+    (eng, res), = seen
+    stats, _rest = _stats_and_rest(out)
+    check(res.distinct_states == HT_DISTINCT and res.depth == HT_DEPTH and
+          res.level_sizes == SPILL_LEVEL_SIZES[:HT_DEPTH] and
+          stats["distinct_states"] == HT_DISTINCT,
+          f"phase 14b: {res} level sizes {res.level_sizes}")
+    check(eng.hpt.n_keys == HT_DISTINCT,
+          f"phase 14b: the host table holds {eng.hpt.n_keys} keys")
+    check(eng.reseeds > 0, "phase 14b: the device cache never reseeded")
+    check(launches > 0, "phase 14b: no dedup launch")
+    reseed_check = check_reseed(torch, fp, eng, reseed, card)
+    t0 = time.perf_counter()
+    rc2, out2, err2, seen2 = cli_run(argv + ["--resume", ck2],
+                                     cls=SpillEngine)
+    wall2 = time.perf_counter() - t0
+    check(rc2 == 0, f"phase 14b spill resume exit {rc2}: {err2[-2000:]}")
+    stats2, _rest2 = _stats_and_rest(out2)
+    check(stats2 == stats, f"phase 14b: resumed stats {stats2} != {stats}")
+    (eng2, res2), = seen2
+    log(f"phase 14b host table [{card}]: classic checkpoint at depth "
+        f"{HT_CKPT_DEPTH} ({ck_bytes} B, {classic_s:.2f} s), "
+        f"--resume-portable with the host table (4 partitions) to depth "
+        f"{res.depth}: {res.distinct_states} distinct == the reference, "
+        f"host table {eng.hpt.n_keys} keys in {eng.hpt.nbytes} B, caps "
+        f"{[eng.hpt.cap(p) for p in range(eng.hpt.P)]}; device-cache "
+        f"reseeds {eng.reseeds}; staged sweep hits "
+        f"{eng.sweep_stage_hits}, misses {eng.sweep_stage_misses}; wall "
+        f"{wall:.2f} s; probe_claim_insert launches {launches}; host "
+        f"seconds { {k: round(v, 3) for k, v in eng.host_seconds.items()} }"
+        f"; the spill checkpoint at depth 18 ({os.path.getsize(ck2)} B) "
+        f"resumed to depth {res2.depth}: the same stats line, "
+        f"{wall2:.2f} s")
+    return dict(wall=wall, launches=launches, reseeds=eng.reseeds,
+                reseed_check=reseed_check,
+                hits=eng.sweep_stage_hits, misses=eng.sweep_stage_misses,
+                host_keys=eng.hpt.n_keys, resume_wall=wall2,
+                classic_s=classic_s, ckpt_bytes=ck_bytes,
+                host_s={k: round(v, 3) for k, v in eng.host_seconds.items()})
+
+
+def check_reseed(torch, fp, eng, reseed, card):
+    """Phase 14b's largest cache reseed, held at its own shapes: its
+    frontier keys claim-inserted into an empty table at its VCAP by the
+    kernel on the card and by the plain twin give equal fresh, pos and
+    tables, every key fresh; the engine's reseeded cache is that table,
+    and holds every key (the engine's membership probe)."""
+    import numpy as np
+    dev = torch.device("cuda")
+    n, vcap = reseed["n"], reseed["vcap"]
+    check(n == len(reseed["keys"]) and n > 0, f"phase 14b reseed of {n}")
+    keys = torch.from_numpy(
+        np.ascontiguousarray(reseed["keys"].T).view(np.int32))
+    live = torch.ones(n, dtype=torch.bool)
+    t_k = torch.full((eng.W, vcap), -1, dtype=torch.int32, device=dev)
+    fk, pk, hk = fp.probe_claim_insert(t_k, keys.to(dev), live.to(dev))
+    t_p = torch.full((eng.W, vcap), -1, dtype=torch.int32)
+    t0 = time.perf_counter()
+    fpl, ppl, hpl = fp.probe_claim_insert_plain(t_p, keys, live)
+    plain_s = time.perf_counter() - t0
+    check(torch.equal(t_k.cpu(), t_p) and torch.equal(fk.cpu(), fpl) and
+          torch.equal(pk.cpu(), ppl) and not bool(hk) and not bool(hpl),
+          "phase 14b: the reseed's kernel insert differs from the twin")
+    check(bool(fpl.all()), "phase 14b: a reseed key was not fresh")
+    check(torch.equal(reseed["table"], t_p),
+          "phase 14b: the reseeded cache is not the twin's table")
+    member = eng._member_dev(reseed["table"].to(dev), keys.to(dev))
+    check(bool(member.all()), "phase 14b: a frontier key is missing from "
+          "the reseeded cache")
+    log(f"phase 14b reseed [{card}]: the largest reseed's {n} frontier "
+        f"keys at VCAP {vcap}: kernel == plain twin (table, fresh, pos; "
+        f"twin {plain_s:.1f} s), == the engine's reseeded cache, every "
+        f"key a member")
+    return dict(keys=n, vcap=vcap, plain_s=plain_s)
 
 
 def main():
@@ -1500,6 +1788,13 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     t13c = sim_fleet_phase(torch, here, card)
     t13d = sim_graph_phase(torch, card)
+    # phase 14: the host-spill engine, the host table, portable resume
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        t14 = spill_phase(torch, fp, here, tmp, card)
+        t14b = host_table_phase(torch, fp, here, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -1517,6 +1812,11 @@ def main():
         "rehash_plain_ms": meas["rehash_plain_ms"],
         "rehash_bound_ms": meas["rehash_bound_ms"],
         "rehash_rounds": meas["rehash_rounds"],
+        "spill_shape_ms": meas["spill_ms"],
+        "spill_shape_plain_ms": meas["spill_plain_ms"],
+        "spill_shape_bound_ms": meas["spill_bound_ms"],
+        "spill_shape_rounds": meas["spill_rounds"],
+        "spill_shape_of": "phase 3h: VCAP 2^26 at 35%, M 131,072",
         "main_path_ms": t8["kernel_ms"],
         "main_path_ms_of": "config #1 to depth 16, eager chunk steps "
                           "(phase 8), CUDA events per launch",
@@ -1535,7 +1835,10 @@ def main():
         "seeded_check_launches": t10b["check_launches"],
         "config3_launches": c3["launches"],
         "config1_supervised_launches": t12["launches"],
-        "sim_seeded_check_launches": t13["check_launches"]}],
+        "sim_seeded_check_launches": t13["check_launches"],
+        "spill_launches": t14["launches"],
+        "host_table_launches": t14b["launches"]}],
+        "spill": {"config2_depth20": t14, "host_table_depth19": t14b},
         "sim": {
             "hunt_wall_s": t13["wall"], "hunt_run_s": t13["run_s"],
             "hunt_walker_steps_per_sec": t13["walker_steps_per_sec"],

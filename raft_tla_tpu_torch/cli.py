@@ -34,8 +34,12 @@ in the reference's format, ``--resume F`` continues one written by
 either package, ``--archive-dir D`` keeps the trace archives on disk,
 and ``--retries N --backoff S`` supervise the run (resume from the
 newest valid checkpoint after a transient failure; ``--chaos SPEC``
-injects faults to test exactly that).  The stats keys are the
-reference CLI's names for the fields this port fills.
+injects faults to test exactly that).  ``check --spill`` runs the
+host-spill engine (``--seg``; ``--host-table --partitions P --part-cap
+N --sweep-stage`` for the host-partitioned visited table), and
+``--resume F --resume-portable`` resumes any engine family's
+checkpoint on it (``resil/portable.py``).  The stats line has the
+reference CLI's keys, in its order.
 """
 
 from __future__ import annotations
@@ -119,12 +123,17 @@ def _load_cfg(args):
     return ir, _apply_overrides(load_model(args.cfg, bounds=None), args, ir)
 
 
+# the run's program (``Engine._stamp_mode``), after the burst keys
+MODE_KEYS = ("guard_matmul", "dedup_kernel", "delta_matmul", "sym_canon")
+
+
 def check_stats(counters: dict, seconds: float, n_violations: int,
                 fp_bits=None, ir_fp=None) -> dict:
     """The ``check`` stats payload, with the reference's key names and
-    order: ``pin_interior_states`` only when nonzero, the fingerprint
-    and burst keys only for the engine (``fp_bits`` given), the spec's
-    name and its IR fingerprint (``ir_fp``) last."""
+    order (``obs/metrics.py`` ``check_stats``): ``pin_interior_states``
+    only when nonzero, the fingerprint, burst and mode keys only for the
+    engine (``fp_bits`` given), the spec's name and its IR fingerprint
+    (``ir_fp``) last."""
     distinct = int(counters["distinct_states"])
     gen = int(counters["generated_states"])
     out = {
@@ -142,9 +151,9 @@ def check_stats(counters: dict, seconds: float, n_violations: int,
         out["fp_bits"] = int(fp_bits)
         out["expected_fp_collisions"] = float(
             distinct * distinct / 2.0 ** (fp_bits + 1))
-        for k in ("levels_fused", "burst_dispatches", "burst_bailouts",
-                  "level_sizes", "sym_canon"):
-            out[k] = counters[k]
+        for k in ("levels_fused", "burst_dispatches",
+                  "burst_bailouts") + MODE_KEYS:
+            out[k] = int(counters[k])
     out["spec"] = "raft"
     if ir_fp is not None:
         out["ir_fingerprint"] = ir_fp
@@ -195,29 +204,37 @@ def sim_stats(res, target: str, policy: str, seed: int,
 
 
 def _engine_counters(res) -> dict:
-    """A CheckResult's counters for ``check_stats`` (sym_canon: 1 =
-    orbit-sort, 0 = min-over-perms, the resolved --sym-canon)."""
+    """A CheckResult's counters for ``check_stats`` (the mode keys as
+    ``Engine._stamp_mode`` stamped them)."""
     return dict(distinct_states=res.distinct_states,
                 generated_states=res.generated_states, depth=res.depth,
                 pin_interior_states=res.pin_interior_states,
                 levels_fused=res.levels_fused,
                 burst_dispatches=res.burst_dispatches,
                 burst_bailouts=res.burst_bailouts,
-                level_sizes=list(res.level_sizes),
-                sym_canon=res.sym_canon)
+                **{k: getattr(res, k) for k in MODE_KEYS})
 
 
 def _engine(cfg, args, store_states):
+    kw = dict(chunk=args.chunk, vcap=args.vcap, ocap=args.ocap,
+              store_states=store_states, burst=args.burst,
+              burst_levels=args.burst_levels, sym_canon=args.sym_canon,
+              guard_matmul=args.guard_matmul,
+              delta_matmul=args.delta_matmul,
+              fam_density=args.fam_density,
+              archive_dir=getattr(args, "archive_dir", None),
+              device=args.device)
+    if getattr(args, "spill", False):
+        # the host-spill engine: levels stream through host RAM
+        # (engine/spill.py); --host-table moves the visited set to
+        # prefix partitions in host RAM (engine/host_table.py)
+        from .engine.spill import SpillEngine
+        return SpillEngine(cfg, seg=args.seg, host_table=args.host_table,
+                           partitions=args.partitions,
+                           part_cap=args.part_cap,
+                           sweep_stage=args.sweep_stage, **kw)
     from .engine.bfs import Engine
-    return Engine(cfg, chunk=args.chunk, lcap=args.lcap, vcap=args.vcap,
-                  ocap=args.ocap, store_states=store_states,
-                  burst=args.burst, burst_levels=args.burst_levels,
-                  sym_canon=args.sym_canon,
-                  guard_matmul=args.guard_matmul,
-                  delta_matmul=args.delta_matmul,
-                  fam_density=args.fam_density,
-                  archive_dir=getattr(args, "archive_dir", None),
-                  device=args.device)
+    return Engine(cfg, lcap=args.lcap, **kw)
 
 
 def _install_chaos(args):
@@ -347,6 +364,24 @@ def cmd_check(args) -> int:
         print("--resume and --seed-trace are mutually exclusive",
               file=sys.stderr)
         return 2
+    if args.resume_portable and not args.resume:
+        print("--resume-portable qualifies --resume: pass the "
+              "checkpoint with --resume FILE", file=sys.stderr)
+        return 2
+    if args.resume_portable and not (args.spill or args.pjit):
+        print("--resume-portable re-partitions any engine family's "
+              "checkpoint onto the spill or pjit engine: add --spill "
+              "or --pjit", file=sys.stderr)
+        return 2
+    if args.pjit and args.spill:
+        print("--pjit and --spill are different engines; pick one",
+              file=sys.stderr)
+        return 2
+    if args.pjit:
+        print("--pjit (the pod-scale pjit engine) is not ported to this "
+              "package: run on one device, or use --spill",
+              file=sys.stderr)
+        return 2
     err = _check_retry_flags(args) or _install_chaos(args)
     if err:
         print(err, file=sys.stderr)
@@ -395,6 +430,10 @@ def _check(args, ir, cfg) -> int:
             pin_interior_states=r.pin_interior_states), secs, len(viol),
             ir_fp=ir.fingerprint())
     else:
+        if args.host_table and not args.spill:
+            print("--host-table composes with the spill engine: add "
+                  "--spill", file=sys.stderr)
+            return 2
         if args.burst_levels is not None and args.burst_levels <= 0:
             print(f"--burst-levels must be positive (got "
                   f"{args.burst_levels}); use --no-burst to disable "
@@ -413,10 +452,16 @@ def _check(args, ir, cfg) -> int:
             eng.ckpt_keep = args.ckpt_keep
             return eng
         try:
+            resume_image = None
+            if args.resume_portable:
+                from .resil.portable import load_portable_image
+                resume_image = load_portable_image(args.resume)
             r, eng, _attempts = supervised_check(
                 make_engine, retries=args.retries, backoff=args.backoff,
-                checkpoint_path=args.checkpoint, resume_from=args.resume,
-                max_depth=args.max_depth, max_states=args.max_states,
+                checkpoint_path=args.checkpoint,
+                resume_from=(None if args.resume_portable
+                             else args.resume),
+                resume_image=resume_image, max_depth=args.max_depth, max_states=args.max_states,
                 stop_on_violation=not args.keep_going,
                 verbose=args.verbose, seed_states=engine_seeds,
                 checkpoint_every=args.checkpoint_every)
@@ -455,11 +500,10 @@ def _check(args, ir, cfg) -> int:
         out = check_stats(_engine_counters(r), r.seconds, len(viol),
                           fp_bits=128 if args.fp128 else 64,
                           ir_fp=ir.fingerprint())
-        out["device"] = str(eng.device)
     print(json.dumps(out))
     if args.stats_json:
         with open(args.stats_json, "w") as fh:
-            json.dump(out, fh, indent=1)
+            json.dump(out, fh)
     for k, (name, trace) in enumerate(viol):
         if args.engine == "oracle":
             print(f"\nViolation {k}: {name}")
@@ -529,7 +573,7 @@ def cmd_trace(args) -> int:
                                   len(r.violations),
                                   fp_bits=128 if args.fp128 else 64,
                                   ir_fp=ir.fingerprint()),
-                      fh, indent=1)
+                      fh)
     return 0
 
 
@@ -677,6 +721,36 @@ def main(argv=None) -> int:
     common(pc)
     pc.add_argument("--keep-going", action="store_true",
                     help="do not stop at the first violation")
+    pc.add_argument("--spill", action="store_true",
+                    help="host-spill engine: stream levels through "
+                         "host RAM — for levels whose buffers outgrow "
+                         "the device")
+    pc.add_argument("--pjit", action="store_true",
+                    help="the reference's pod-scale pjit engine: not "
+                         "ported (refused)")
+    pc.add_argument("--seg", type=int, default=1 << 21,
+                    help="spill segment capacity in states (--spill)")
+    pc.add_argument("--host-table", action="store_true",
+                    help="host-partitioned visited table (needs "
+                         "--spill): the authoritative fingerprint set "
+                         "lives in host RAM as fingerprint-prefix "
+                         "partitions swept through the device per "
+                         "level; the device table becomes a bounded "
+                         "cache")
+    pc.add_argument("--sweep-stage",
+                    action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="double-buffered sweep uploads (--host-table): "
+                         "start the next sweep's partition-image "
+                         "uploads at level start so they overlap the "
+                         "level's steps (same counts either way)")
+    pc.add_argument("--partitions", type=int, default=4, metavar="P",
+                    help="host-table partition count, a power of two "
+                         "(counts do not depend on it)")
+    pc.add_argument("--part-cap", type=int, default=1 << 16,
+                    metavar="N",
+                    help="initial slots per host-table partition "
+                         "(grows 4x on the 0.40 load bound)")
     pc.add_argument("--burst", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="fuse runs of small levels: while the frontier "
@@ -719,6 +793,13 @@ def main(argv=None) -> int:
                          "or corrupt head falls back to the previous "
                          "valid checkpoint in the last-K chain with a "
                          "named warning")
+    pc.add_argument("--resume-portable", action="store_true",
+                    help="shape-portable resume (needs --spill): "
+                         "re-partition any engine family's checkpoint "
+                         "— classic, spill, or a JAX mesh of any device "
+                         "count — onto this engine by re-inserting the "
+                         "visited key set and re-homing the frontier "
+                         "(resil/portable.py)")
     pc.add_argument("--ckpt-keep", type=int, default=2, metavar="K",
                     help="checkpoint-chain depth: keep the last K "
                          "checkpoints (FILE, FILE.1, ...), each with "

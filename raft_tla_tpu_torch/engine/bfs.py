@@ -116,8 +116,11 @@ class CheckResult:
         # the fused path: levels committed inside bursts, burst
         # dispatches, and dispatches that ended in a bail
         self.levels_fused = self.burst_dispatches = self.burst_bailouts = 0
+        # the program this run executed (``Engine._stamp_mode``):
+        # the guard product, the hand dedup kernel, the delta group, and
         # 1 = orbit-sort canonical fingerprints, 0 = min-over-perms (the
         # resolved mode, as the reference reports it)
+        self.guard_matmul = self.dedup_kernel = self.delta_matmul = 0
         self.sym_canon = 0
         # sort mode: hard lanes that took the min-over-perms fallback,
         # the chunks that had any, and the most in one chunk
@@ -125,6 +128,15 @@ class CheckResult:
         # distinct pinned-prefix interior states invariant-checked but
         # not counted (TLC counts them; models/golden docstring)
         self.pin_interior_states = 0
+
+    @property
+    def states_per_sec(self):
+        return self.distinct_states / max(self.seconds, 1e-9)
+
+    @property
+    def dedup_hit_rate(self):
+        """Fraction of generated successors that were duplicates."""
+        return 1.0 - self.distinct_states / max(self.generated_states, 1)
 
     def __repr__(self):
         return (f"CheckResult(distinct_states={self.distinct_states}, "
@@ -547,12 +559,78 @@ class Engine:
         return out.scatter_(0, opos, torch.arange(
             n, device=fresh.device))[:ocap]
 
+    def _grow_caps(self, oovf: bool, fovf: bool, famx):
+        """After an overflow: double OCAP toward FCAP (fresh rows
+        outran the second compaction), and grow the family caps past
+        their chunk maxima ``famx`` or, when no family cap overflowed,
+        FCAP."""
+        if oovf:
+            self.OCAP = self._round_cap(min(self.FCAP, 2 * self.OCAP))
+        if fovf:
+            caps = list(self.FAM_CAPS)
+            fam_over = False
+            for fi, fam in enumerate(self.expander.families):
+                hard = fam.n_lanes * self.chunk
+                while caps[fi] < hard and famx[fi] > caps[fi]:
+                    caps[fi] = min(2 * caps[fi], hard)
+                    fam_over = True
+            self.FAM_CAPS = tuple(caps)
+            if not fam_over:
+                self.FCAP = self._round_cap(min(
+                    self.chunk * self.A,
+                    max(2 * self.FCAP, (5 * int(sum(famx))) // 4)))
+
     def _graph_key(self, kind: str, st: _Level):
         """What a captured step or burst iteration is specialised to."""
         return (kind, self.chunk, self.FCAP, self.OCAP,
                 tuple(self.FAM_CAPS), self.HCAP, st.lcap, st.vcap,
                 self.incremental_fp and self.fpr.supports_incremental(),
                 self.fpr.sym_canon, bool(self.act_names))
+
+    # ------------------------------------------------------------------
+    # the halves a chunk step shares with the spill engine's
+    # ------------------------------------------------------------------
+
+    def _gather_window(self, st, cap: int):
+        """The chunk window: a gather of the frontier at base +
+        arange(B), clamped into its ``cap`` rows (a multiple of the
+        chunk).  Returns (rows, win, sv): the rows' indices, the clamped
+        indices and the widened states; the caller masks rows past the
+        frontier."""
+        rows = st.base + torch.arange(self.chunk, device=self.device)
+        win = rows.clamp(max=cap - 1)
+        sv = self.ir.widen({k: v.index_select(-1, win)
+                            for k, v in st.front.items()})
+        return rows, win, sv
+
+    def _append_fresh(self, st, fresh, n_fresh, cand, lanes, parent_of,
+                      per_row=()):
+        """The second compaction (FCAP -> OCAP), the invariants and
+        constraints of the fresh rows, and their contiguous append at
+        ``n_lvl`` (rows past n_fresh are garbage beyond the new n_lvl);
+        then the cursor moves one chunk on.  ``parent_of`` maps the
+        parents' frontier rows to their global ids; ``per_row`` holds
+        (buffer, dim, source) triples, each source indexed along dim by
+        buffer slot, appended beside the rows."""
+        A, OCAP, LCAP = self.A, self.OCAP, st.lcap
+        lidx = self._compact(fresh, OCAP)
+        lane = lanes[lidx]
+        rows_f = {k: v.index_select(-1, lidx) for k, v in cand.items()}
+        inv, con = self._phase2_T(rows_f)
+        rows_n = self.ir.narrow(self.lay, rows_f)
+        dst = st.n_lvl.clamp(max=LCAP - OCAP) + torch.arange(
+            OCAP, device=self.device)
+        for k, v in st.lvl.items():
+            v.index_copy_(v.dim() - 1, dst, rows_n[k])
+        st.lpar.index_copy_(0, dst, parent_of(st.base + lane // A))
+        st.llane.index_copy_(0, dst, (lane % A).to(torch.int32))
+        st.linv.index_copy_(1, dst, inv)
+        st.lcon.index_copy_(0, dst, con)
+        for buf, dim, src in per_row:
+            buf.index_copy_(dim, dst, src.index_select(dim, lidx))
+        st.n_lvl.copy_((st.n_lvl + n_fresh).clamp(max=LCAP - OCAP))
+        torch.maximum(st.ofx, n_fresh, out=st.ofx)
+        st.base += self.chunk
 
     # ------------------------------------------------------------------
     # one frontier chunk (the reference's _chunk_step_impl)
@@ -565,14 +643,8 @@ class Engine:
         nothing back: the counts and flags stay on the device, the dedup
         gate is device data and the fresh rows take the second
         compaction (FCAP -> OCAP), so the step is one fixed program."""
-        B, A, FCAP, OCAP = self.chunk, self.A, self.FCAP, self.OCAP
-        LCAP, dev = st.lcap, self.device
-        # the chunk window: a gather at base + arange(B) (LCAP is a
-        # multiple of the chunk); rows past the frontier are masked
-        rows = st.base + torch.arange(B, device=dev)
-        win = rows.clamp(max=LCAP - 1)
-        sv = self.ir.widen({k: v.index_select(-1, win)
-                            for k, v in st.front.items()})
+        FCAP, OCAP, LCAP = self.FCAP, self.OCAP, st.lcap
+        rows, win, sv = self._gather_window(st, LCAP)
         valid = st.fmask.index_select(0, win) & (rows < st.n_front)
         cand, elive, keys, lanes, counts, n_e, n_gen, n_hard = \
             self._expand_fp_chunk(sv, valid, FCAP)
@@ -602,26 +674,12 @@ class Engine:
         st.oovf |= oovf_now
         fresh = fresh & ~bad_now
         n_fresh = torch.where(bad_now, 0, n_fresh)
-        # the second compaction, then a contiguous append at n_lvl:
-        # rows past n_fresh are garbage beyond the new n_lvl
-        lidx = self._compact(fresh, OCAP)
-        lane = lanes[lidx]
-        rows_f = {k: v.index_select(-1, lidx) for k, v in cand.items()}
-        inv, con = self._phase2_T(rows_f)
-        rows_n = self.ir.narrow(self.lay, rows_f)
-        dst = st.n_lvl.clamp(max=LCAP - OCAP) + torch.arange(OCAP,
-                                                             device=dev)
-        for k, v in st.lvl.items():
-            v.index_copy_(v.dim() - 1, dst, rows_n[k])
-        st.lpar.index_copy_(0, dst, (st.pg_off + st.base + lane // A)
-                            .to(torch.int32))
-        st.llane.index_copy_(0, dst, (lane % A).to(torch.int32))
-        st.jslot.index_copy_(0, dst, pos.index_select(0, lidx))
-        st.linv.index_copy_(1, dst, inv)
-        st.lcon.index_copy_(0, dst, con)
-        st.n_lvl.copy_((st.n_lvl + n_fresh).clamp(max=LCAP - OCAP))
-        torch.maximum(st.ofx, n_fresh, out=st.ofx)
-        st.base += B
+        # parent ids: the frontier's first global id plus the row; the
+        # insert journal records each row's table slot
+        self._append_fresh(
+            st, fresh, n_fresh, cand, lanes,
+            lambda prow: (st.pg_off + prow).to(torch.int32),
+            ((st.jslot, 0, pos),))
 
     # ------------------------------------------------------------------
     # per-level finalize: commit, or roll the table back via the journal
@@ -794,12 +852,10 @@ class Engine:
     def _burst(self, st: _Level, r: _Ring, lv_left: int, st_cap: int):
         """One burst dispatch from the level state's frontier: up to
         ``lv_left`` levels (and to ``st_cap`` new states) while the
-        frontier fits the ring.  The host runs the body k iterations at
-        a time, k the chunks left in the ring's current level, and
-        reads the loop state once per k.  Returns (the meta row
-        [levels done, bail, n_front, viol_any, states done], the stats
-        rows [levels, 8] as numpy)."""
-        B, KB, L = self.chunk, self._burst_width(), self.burst_levels
+        frontier fits the ring.  Returns (the meta row [levels done,
+        bail, n_front, viol_any, states done], the stats rows
+        [levels, 8] as numpy)."""
+        KB = self._burst_width()
         for k, v in st.front.items():
             r.fr[k].copy_(v[..., :KB])
         r.fm.copy_(st.fmask[:KB])
@@ -808,13 +864,34 @@ class Engine:
         r.nf.copy_(st.n_front)
         r.g.copy_(st.g_off)
         r.pg.copy_(st.pg_off)
+        got, stats = self._burst_loop(st, r, lv_left, st_cap,
+                                      st.n_front_h)
+        # paste the surviving frontier back
+        st.fmask.zero_()
+        st.fmask[:KB] = r.fm
+        for k, v in st.front.items():
+            v[..., :KB] = r.fr[k]
+        st.n_front.copy_(r.nf)
+        st.n_front_h = got[2]
+        st.g_off.copy_(r.g)
+        st.pg_off.copy_(r.pg)
+        return got, stats
+
+    def _burst_loop(self, st, r: _Ring, lv_left: int, st_cap: int,
+                    nf: int):
+        """The burst loop over a loaded ring (frontier rows, mask,
+        gids, ``nf`` rows, the id offsets): the host runs the body k
+        iterations at a time, k the chunks left in the ring's current
+        level, and reads the loop state once per k.  Returns (the meta
+        row, the stats rows [levels, 8] as numpy)."""
+        B, L = self.chunk, self.burst_levels
         for t in (r.base, r.nl, r.gl, r.li, r.done, r.bail, r.viol, r.hard,
                   r.hard_l):
             t.zero_()
         r.lv_left.fill_(lv_left)
         r.st_cap.fill_(st_cap)
         key = self._graph_key("burst", st)
-        nf, base = st.n_front_h, 0
+        base = 0
         while True:
             for _ in range(max(1, -(-(nf - base) // B))):
                 self._graphs.run(key, lambda: self._burst_body(st, r))
@@ -825,15 +902,6 @@ class Engine:
             li, bail, nf, viol, done, base = got[:6]
             if bail or viol or li >= lv_left or nf == 0 or done >= st_cap:
                 break
-        # paste the surviving frontier back
-        st.fmask.zero_()
-        st.fmask[:KB] = r.fm
-        for k, v in st.front.items():
-            v[..., :KB] = r.fr[k]
-        st.n_front.copy_(r.nf)
-        st.n_front_h = nf
-        st.g_off.copy_(r.g)
-        st.pg_off.copy_(r.pg)
         h, hb = self.hard_stats, got[6:9]
         self.hard_stats = [h[0] + hb[0], h[1] + hb[1], max(h[2], hb[2])]
         return got[:5], np.asarray(got[9:], np.int64).reshape(L, 8)
@@ -1114,12 +1182,134 @@ class Engine:
         z.close()             # all arrays extracted; don't leak the fd
         return st, res, meta
 
+    # ------------------------------------------------------------------
+    # shape-portable resume (resil/portable.py)
+    # ------------------------------------------------------------------
+
+    def _restore_portable_archives(self, img):
+        """The portable twin of ``_load_archives``: attach the archives
+        a ``PortableImage`` carries (the in-RAM per-level lists, or a
+        disk archive reattached and truncated).  The archive format is
+        engine-agnostic, so archives cross engine families unchanged."""
+        from .archive import ArchiveError, DiskArchive
+        self._arch = None
+        self._parents, self._lanes, self._states = [], [], []
+        if not self.store_states:
+            return
+        if not img.store_states:
+            raise CheckpointError(
+                "portable image was written with store_states=False; "
+                "resume with store_states=False (CLI: --no-store) — "
+                "trace archives cannot be reconstructed")
+        if img.disk_archive_levels is not None:
+            if not self.archive_dir:
+                raise CheckpointError(
+                    f"{img.source_path}: image archives live in a "
+                    "disk archive directory — resume with the same "
+                    "archive_dir (CLI: --archive-dir)")
+            try:
+                self._arch = DiskArchive(self.archive_dir, attach=True)
+                self._arch.truncate(img.disk_archive_levels)
+            except ArchiveError as e:
+                raise CheckpointError(str(e)) from e
+            return
+        if self.archive_dir:
+            raise CheckpointError(
+                f"{img.source_path}: image holds in-RAM archives; "
+                "resume without archive_dir")
+        self._parents = list(img.parents)
+        self._lanes = list(img.lanes)
+        self._states = [dict(s) for s in img.states]
+
+    def _seed_table_from_keys(self, keys_np: np.ndarray) -> torch.Tensor:
+        """[N, W] u32 visited keys -> a fresh table's flat buffer at
+        the current VCAP, claim-inserted by the dedup kernel (its plain
+        twin on the CPU).  Dedup needs membership, not the source's
+        slot layout; the reference's lax claim walk places contended
+        keys elsewhere."""
+        flat = self._new_table(self.VCAP)
+        if len(keys_np):
+            keys = words_to_torch(np.ascontiguousarray(keys_np.T),
+                                  self.device)
+            live = torch.ones(keys.shape[1], dtype=torch.bool,
+                              device=self.device)
+            _f, _p, hv = probe_claim_insert(
+                flat[:-1].view(self.W, self.VCAP), keys, live)
+            if bool(hv):
+                raise RuntimeError(
+                    "portable-resume table seed probe overflow — raise "
+                    "vcap")
+        return flat
+
+    def _resume_portable(self, img):
+        """PortableImage -> (level state, result, depth, n_states,
+        n_vis, n_front).  Refuses an image whose frontier gids are not
+        contiguous (a spill-family image drops constraint-pruned rows;
+        this engine's frontier is the whole last level under fmask),
+        naming the engine that can host it."""
+        from ..resil.portable import validate_image
+        validate_image(img, self.ir.name, repr(self.cfg), self.W)
+        n_front = img.n_front
+        if n_front:
+            gids = np.asarray(img.gids, np.int64)
+            pg_off = int(gids[0])
+            if not np.array_equal(
+                    gids, pg_off + np.arange(n_front, dtype=np.int64)):
+                raise CheckpointError(
+                    f"{img.source_path}: portable image's frontier "
+                    "gids are not contiguous (a spill-family image "
+                    "drops constraint-pruned rows); this engine's "
+                    "frontier layout needs the full last level — "
+                    "resume it with the spill engine "
+                    "(check --spill --resume F --resume-portable)")
+        else:
+            pg_off = img.n_states
+        # capacities follow the fresh start's sizing (they shape
+        # overflow replays, never counts)
+        while self.LCAP - self.OCAP < 2 * max(n_front, 1):
+            self.LCAP *= 2
+        while img.n_vis + self.LCAP - self.OCAP > \
+                self._LOAD_MAX * self.VCAP:
+            self.VCAP *= 4
+        self._restore_portable_archives(img)
+        st = _Level(self, self.LCAP, self._seed_table_from_keys(img.keys))
+        if n_front:
+            rows = rows_to_torch({k: np.asarray(v)
+                                  for k, v in img.rows.items()},
+                                 self.device)
+            rows_n = self.ir.narrow(self.lay, rows)
+            for k, v in st.front.items():
+                v[..., :n_front] = rows_n[k]
+            st.fmask[:n_front] = torch.from_numpy(
+                np.asarray(img.con, bool)).to(self.device)
+        st.n_front.fill_(n_front)
+        st.n_front_h = n_front
+        st.pg_off.fill_(pg_off)
+        st.g_off.fill_(img.n_states)
+        self.hard_stats = [0, 0, 0]
+        return (st, img.fresh_result(), img.depth, img.n_states,
+                img.n_vis, n_front)
+
+    def _stamp_mode(self, res: CheckResult) -> CheckResult:
+        """Record which expansion and dedup program this run executed,
+        from the live engine (never from a checkpoint, so a resumed run
+        reports the resuming engine's modes).  ``dedup_kernel`` is 1
+        when the hand kernel ran (a CUDA device) and 0 for its plain
+        twin on the CPU: the reference's ``auto`` reading, which engages
+        its kernel on the accelerator only."""
+        res.guard_matmul = int(self.guard_matmul)
+        res.dedup_kernel = int(self.device.type == "cuda")
+        res.delta_matmul = int(self.expander.delta_active)
+        res.sym_canon = int(self.fpr.sym_canon == "sort")
+        return res
+
     def check(self, max_depth: int = 10 ** 9, max_states: int = 10 ** 9,
               stop_on_violation: bool = False,
               seed_states: Optional[List] = None,
               checkpoint_path: Optional[str] = None,
               checkpoint_every: int = 1,
               resume_from: Optional[str] = None,
+              resume_image=None,
               verbose: bool = False, obs=None) -> CheckResult:
         """BFS from Init, from the cfg's prefix pins, or from
         ``seed_states``: (State, Hist) pairs or raw SoA dicts (the
@@ -1131,15 +1321,26 @@ class Engine:
         writes one after it); resume_from — continue a checkpointed
         run, written by this engine or by the JAX package's (the final
         counts are those of an uninterrupted run; levels are never
-        half-resumed).  ``obs`` is accepted, as the reference's is, and
-        not used: this package has no observability bundle yet."""
+        half-resumed).  resume_image — a ``resil.portable.PortableImage``
+        of any engine family's checkpoint: its key set seeds the table
+        and its gid-ordered frontier becomes the level state's.  ``obs``
+        is accepted, as the reference's is, and not used: this package
+        has no observability bundle yet."""
         t0 = time.perf_counter()
+        if resume_from is not None and resume_image is not None:
+            raise ValueError(
+                "resume_from and resume_image are mutually exclusive")
         self._graphs = GraphRunner(self.device, self._capture)
         ring = None
+        resumed = resume_from is not None or resume_image is not None
         if resume_from is not None:
             st, res, cmeta = self._load_checkpoint(resume_from)
             n_states, n_vis = cmeta["n_states"], cmeta["n_vis"]
             depth, n_front = cmeta["depth"], cmeta["n_front"]
+            self._restore_pin_interiors(res)
+        elif resume_image is not None:
+            (st, res, depth, n_states, n_vis,
+             n_front) = self._resume_portable(resume_image)
             self._restore_pin_interiors(res)
         else:
             self._init_store()
@@ -1213,9 +1414,10 @@ class Engine:
                 res, meta[0], lambda li: stats[li, :5], depth, n_states,
                 archive=archive, violations=violations, visited=visited)
 
-        if resume_from is None:
+        if not resumed:
             scal, inv_ok = self._finalize(st)
             n_front = harvest(st, scal, inv_ok)
+        self._stamp_mode(res)
 
         def save(st):
             self._save_checkpoint(checkpoint_path, st, res, depth,
@@ -1280,23 +1482,8 @@ class Engine:
                 # kept, so grow and replay the level exactly
                 self._graphs.clear()
                 old_caps = (self.LCAP, self.FCAP, self.OCAP)
-                if oovf:
-                    self.OCAP = self._round_cap(
-                        min(self.FCAP, 2 * self.OCAP))
-                if fovf:
-                    famx = scal[11:11 + len(self.FAM_CAPS)]
-                    caps = list(self.FAM_CAPS)
-                    fam_over = False
-                    for fi, fam in enumerate(self.expander.families):
-                        hard = fam.n_lanes * self.chunk
-                        while caps[fi] < hard and famx[fi] > caps[fi]:
-                            caps[fi] = min(2 * caps[fi], hard)
-                            fam_over = True
-                    self.FAM_CAPS = tuple(caps)
-                    if not fam_over:
-                        self.FCAP = self._round_cap(min(
-                            self.chunk * self.A,
-                            max(2 * self.FCAP, (5 * int(sum(famx))) // 4)))
+                self._grow_caps(oovf, fovf,
+                                scal[11:11 + len(self.FAM_CAPS)])
                 if ovf or self.LCAP < 4 * self.OCAP:
                     self.LCAP = self._round_cap(
                         max((4 * self.LCAP) if ovf else self.LCAP,
@@ -1331,7 +1518,6 @@ class Engine:
                       f"{n_chunks} chunks in "
                       f"{time.perf_counter() - t1:.2f}s")
         res.depth = depth
-        res.sym_canon = int(self.fpr.sym_canon == "sort")
         res.hard_lanes, res.hard_chunks, res.hard_chunk_max = \
             self.hard_stats
         if self.device.type == "cuda":

@@ -12,9 +12,9 @@ the supervised retry/backoff runner.
 - ``supervisor`` — catch → release the failed attempt → resume from
   the latest valid checkpoint, with bounded exponential backoff and
   jitter.
-
-The reference's ``portable`` (shape-portable resume images) is not
-ported yet.
+- ``portable`` — shape-portable resume images: any engine family's
+  checkpoint (classic, spill, the JAX package's mesh engines) read into
+  one wavefront that the port's ``Engine`` and ``SpillEngine`` resume.
 """
 
 from .chaos import (ChaosSchedule, ChaosSpecError, InjectedFault,

@@ -100,6 +100,7 @@ def supervised_check(make_engine: Callable[[], object],
                      obs=None,
                      checkpoint_path: Optional[str] = None,
                      resume_from: Optional[str] = None,
+                     resume_image=None,
                      sleep: Callable[[float], None] = time.sleep,
                      reinit: bool = True,
                      **check_kw):
@@ -111,7 +112,7 @@ def supervised_check(make_engine: Callable[[], object],
     ``make_engine`` is called once per attempt.  ``checkpoint_path``
     doubles as the recovery source: each retry resumes from the newest
     valid chain member; without one, retries fall back to the original
-    ``resume_from`` (or a fresh start).  ``reinit=False`` skips the
+    ``resume_from``/``resume_image`` (or a fresh start).  ``reinit=False`` skips the
     release between attempts (the chaos differentials retry dozens of
     times on one CPU engine).  Remaining kwargs pass through to
     ``check()``."""
@@ -119,14 +120,17 @@ def supervised_check(make_engine: Callable[[], object],
     # the caller's resume source: retries fall back to it (or to a
     # fresh start) whenever the checkpoint chain has no valid member —
     # never to a stale chain path from an earlier attempt
-    orig_from = resume_from
+    orig_from, orig_image = resume_from, resume_image
     attempt = 0
     while True:
         eng = None
         try:
             eng = make_engine()
+            kw = dict(check_kw)
+            if resume_image is not None:
+                kw["resume_image"] = resume_image
             res = eng.check(checkpoint_path=checkpoint_path,
-                            resume_from=resume_from, obs=obs, **check_kw)
+                            resume_from=resume_from, obs=obs, **kw)
             return res, eng, attempt + 1
         except NotImplementedError:
             # a RuntimeError subclass, but never weather: it names a
@@ -150,5 +154,8 @@ def supervised_check(make_engine: Callable[[], object],
             # on a --resume, and the newest valid member loads
             lv = (latest_valid(checkpoint_path)
                   if checkpoint_path else None)
-            resume_from = checkpoint_path if lv is not None else orig_from
+            if lv is not None:
+                resume_from, resume_image = checkpoint_path, None
+            else:
+                resume_from, resume_image = orig_from, orig_image
             attempt += 1

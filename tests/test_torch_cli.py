@@ -84,9 +84,17 @@ def test_expansion_flags_are_accepted(cfgs, capsys):
                   ["--guard-matmul", "--delta-matmul",
                    "--fam-cap-density", "Receive=1,UpdateTerm=1"]):
         rc, out, _err = _run(main, base + extra, capsys)
-        outs.append((rc, re.sub(r'"seconds": [^,]+, "states_per_sec": '
-                                r'[^,]+,', "", out)))
-    assert outs[0] == outs[1] == outs[2]
+        # the mode keys name the program that ran, which the flags pick
+        modes = re.search(r'"guard_matmul": (\d), "dedup_kernel": (\d), '
+                          r'"delta_matmul": (\d),', out).groups()
+        outs.append((rc, re.sub(r'"guard_matmul": \d, "dedup_kernel": '
+                                r'\d, "delta_matmul": \d,', "",
+                                re.sub(r'"seconds": [^,]+, '
+                                       r'"states_per_sec": [^,]+,', "",
+                                       out)), modes))
+    assert outs[0][:2] == outs[1][:2] == outs[2][:2]
+    assert [o[2] for o in outs] == [("1", "0", "1"), ("0", "0", "0"),
+                                    ("1", "0", "1")]
     rc, _out, err = _run(main, base + ["--fam-cap-density", "Receive=0"],
                          capsys)
     assert rc == 2 and err.startswith("--fam-cap-density: fam-cap-density "

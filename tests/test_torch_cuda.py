@@ -585,3 +585,123 @@ def test_sim_captured_step_equals_the_eager_step(cuda, stop_on_hit):
         assert sorted(other) == sorted(out[0])
         for k in out[0]:
             assert torch.equal(out[0][k], other[k]), k
+
+
+def _spill_micro():
+    return ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
+                       next_family=NEXT_ASYNC, symmetry=True,
+                       max_inflight_override=4,
+                       invariants=("FirstBecomeLeader",),
+                       bounds=Bounds.make(max_log_length=1, max_timeouts=1,
+                                          max_client_requests=1))
+
+
+def test_spill_captured_step_equals_the_eager_step(cuda):
+    """Config #1 to depth 15 on the spill engine's segment driver with
+    segments small enough to spill mid-level (chunk 256, FCAP 4096, so
+    SEGL 2^14, and a summary read after every chunk: the spill floor is
+    6,144 rows, and level 15's 12,873 rows go down in several
+    segments): every spill step a graph replay against every step
+    eager, bit for bit (counts, archives, segments by level), and both
+    against the classic engine's level sizes."""
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    cs, cfg = _config1()
+    runs = {}
+    for capture in (True, False):
+        eng = SpillEngine(cfg, chunk=256, fcap=4096, seg=1 << 12,
+                          sync_every=1, burst=False, store_states=True,
+                          device="cuda")
+        eng._capture = capture
+        res = eng.check(max_depth=15)
+        runs[capture] = (eng, res)
+    (g, rg), (e, re_) = runs[True], runs[False]
+    assert rg.level_sizes == re_.level_sizes == cs.CONFIG1_LEVEL_SIZES[:15]
+    assert (rg.distinct_states, rg.generated_states) == \
+        (re_.distinct_states, re_.generated_states)
+    assert g._graphs.replays > 0 and e._graphs.replays == 0
+    assert g.segments_by_level == e.segments_by_level
+    assert g.segments_by_level[15] > 1, g.segments_by_level
+    _same_archives(g, e)
+
+
+def test_spill_pinned_segment_round_trip(cuda):
+    """A frontier segment up through the copy stream and a level segment
+    down through pinned buffers: the bytes come back unchanged, the
+    staged tensors land in the static buffers, and a block the host
+    holds is its own memory (a later spill does not change it)."""
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    eng = SpillEngine(_spill_micro(), chunk=64, seg=1 << 10,
+                      store_states=True, device="cuda")
+    eng.check(max_depth=6)                 # builds the engine's state
+    from raft_tla_tpu_torch.engine.spill import _SpillLevel
+    st = _SpillLevel(eng, eng._new_table(eng.VCAP))
+    rng = np.random.RandomState(5)
+    n = 300
+    rows = {k: rng.randint(-3, 100, size=v.shape[:-1] + (n,)).astype(
+        cvt.storage_to_numpy({k: v[..., :1]})[k].dtype)
+        for k, v in st.front.items()}
+    gids = rng.randint(0, 1 << 30, size=n).astype(np.int32)
+    staged = eng._stage_segment(rows, gids)
+    assert eng._swap_in_segment(st, staged) == n
+    back = cvt.storage_to_numpy({k: v[..., :n] for k, v in st.front.items()})
+    for k in rows:
+        assert np.array_equal(back[k], rows[k]), k
+    assert np.array_equal(st.gids[:n].cpu().numpy(), gids)
+    for k, v in st.lvl.items():
+        v[..., :n].copy_(st.front[k][..., :n])
+    st.lpar[:n] = st.gids[:n]
+    blk = eng._spill_segment(st, n)
+    assert int(st.n_lvl) == 0
+    for v in st.lvl.values():              # the device buffer moves on
+        v.zero_()
+    st.lpar.zero_()
+    blk = eng._materialize_blk(blk)
+    for k in rows:
+        assert np.array_equal(blk["rows"][k], rows[k]), k
+    assert np.array_equal(blk["lpar"], gids)
+    again = eng._spill_segment(st, n)
+    eng._materialize_blk(again)
+    assert np.array_equal(blk["lpar"], gids)
+    assert eng.bytes_down > 0 and eng.bytes_up > 0
+
+
+@pytest.mark.parametrize("host_table", [False, True], ids=["spill", "hpt"])
+def test_spill_on_the_card_equals_the_cpu(cuda, host_table):
+    """The micro config in tiny segments on the card (captured steps, the
+    burst, the copy stream; with the host table the device sweep and the
+    kernel's reseed) against the CPU: counts, level sizes, violation
+    ids and the last state's trace."""
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    kw = dict(chunk=64, seg=1 << 10, vcap=1 << 12, sync_every=2,
+              fcap=64, store_states=True)
+    if host_table:
+        kw.update(host_table=True, part_cap=1 << 6, dev_keys=64)
+    out = []
+    for dev in ("cuda", "cpu"):
+        eng = SpillEngine(_spill_micro(), device=dev, **kw)
+        res = eng.check(max_depth=18)
+        out.append((res.distinct_states, res.generated_states,
+                    res.level_sizes, [v.state_id for v in res.violations],
+                    eng.trace(res.distinct_states - 1)))
+        if host_table:
+            assert eng.reseeds > 0 and eng.hpt.n_keys == res.distinct_states
+    assert out[0] == out[1]
+
+
+def test_spill_hard_lane_trips_keep_counts(cuda):
+    """Config #5's shape to depth 17 on the spill engine with a one-lane
+    hard-lane buffer: every chunk with more hard lanes trips (hcovf),
+    grows HCAP and replays, and the level sizes stay the reference's."""
+    import os
+    import chip_smoke as cs
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
+                     bounds=Bounds.make(**cs.CONFIG5_BOUNDS))
+    cfg = cfg.with_(**cs.CONFIG5_SHAPE)
+    eng = SpillEngine(cfg, chunk=512, hcap=1, device="cuda")
+    res = eng.check(max_depth=17)
+    assert res.level_sizes == cs.CONFIG5_LEVEL_SIZES[:17]
+    assert eng.trips["hcovf"] > 0 and eng.HCAP > 1
+    assert res.hard_lanes > 0

@@ -127,23 +127,38 @@ def test_cli_sym_canon(tmp_path, capsys):
     """--sym-canon: every choice gives the same counts; the stats name
     the resolved mode as the reference's do (1 = sort)."""
     from raft_tla_tpu_torch.cli import main
+    from raft_tla_tpu_torch.engine.bfs import Engine
+    levels, check = [], Engine.check
+
+    def recorded(self, *a, **kw):
+        res = check(self, *a, **kw)
+        levels.append(list(res.level_sizes))
+        return res
     cfg = tmp_path / "micro.cfg"
     cfg.write_text(MICRO_CFG)
     flags = ["--max-log-length", "1", "--max-timeouts", "1",
              "--max-client-requests", "1", "--chunk", "64",
              "--max-depth", "10", "--device", "cpu"]
     out = {}
-    for mode in ("auto", "sort", "minperm"):
-        stats = tmp_path / f"{mode}.json"
-        assert main(["check", str(cfg), "--sym-canon", mode,
-                     "--stats-json", str(stats)] + flags) == 0
-        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert line == json.loads(stats.read_text())
-        out[mode] = line
+    Engine.check = recorded
+    try:
+        for mode in ("auto", "sort", "minperm"):
+            stats = tmp_path / f"{mode}.json"
+            assert main(["check", str(cfg), "--sym-canon", mode,
+                         "--stats-json", str(stats)] + flags) == 0
+            line = json.loads(
+                capsys.readouterr().out.strip().splitlines()[-1])
+            assert line == json.loads(stats.read_text())
+            out[mode] = line
+    finally:
+        Engine.check = check
     assert [out[m]["sym_canon"] for m in ("auto", "sort", "minperm")] == \
         [0, 1, 0]
     for key in ("distinct_states", "generated_states", "depth",
-                "level_sizes", "violations"):
+                "violations"):
         assert out["sort"][key] == out["minperm"][key] == out["auto"][key]
+    # the level sizes left the stats line (the reference's keys): the
+    # engines' results hold them
+    assert len(levels) == 3 and levels[0] == levels[1] == levels[2]
     with pytest.raises(SystemExit):
         main(["check", str(cfg), "--sym-canon", "fast"] + flags)

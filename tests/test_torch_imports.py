@@ -74,3 +74,44 @@ def test_sim_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_spill_modules_import_without_jax():
+    """The spill slice's modules (the engine, the host table, the
+    portable image) and the modules it changed import with JAX and the
+    JAX package blocked, the package walk reaches them, and the spill
+    engine refuses to start without CUDA unless asked for the CPU."""
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.engine.spill",
+               "raft_tla_tpu_torch.engine.host_table",
+               "raft_tla_tpu_torch.resil.portable"]
+        changed = ["raft_tla_tpu_torch." + m for m in (
+            "cli", "engine.bfs", "resil", "resil.supervisor")]
+        assert set(new) <= names, sorted(set(new) - names)
+        for n in new + changed:
+            __import__(n)
+        from raft_tla_tpu_torch.config import Bounds, ModelConfig
+        from raft_tla_tpu_torch.engine.spill import SpillEngine
+        cfg = ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
+                          bounds=Bounds.make(max_log_length=1))
+        try:
+            SpillEngine(cfg)
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("SpillEngine started without CUDA")
+        SpillEngine(cfg, device="cpu")
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr

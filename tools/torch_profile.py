@@ -1,11 +1,11 @@
 """Where the time goes in the PyTorch/CUDA port's check on one GPU.
 
-    python tools/torch_profile.py [--config 1|5|pinned|sim]
+    python tools/torch_profile.py [--config 1|5|pinned|sim|spill]
                                   [--max-depth 17] [--walkers 64]
                                   [--steps 32] [--no-action-constraint]
                                   [--incremental-fp 0|1] [--hcap N]
                                   [--no-guard-matmul] [--no-delta-matmul]
-                                  [--no-burst] [--eager]
+                                  [--no-burst] [--eager] [--host-table]
                                   [--no-profile] [--out FILE]
 
 Runs BASELINE config #1 or #5, or the cfg-pinned punctuated search
@@ -41,6 +41,19 @@ its seed rows, with the mask and without it (one engine each).
 ``--steps`` more are timed plain and once under the profiler: the wall
 per step, the device-busy time per step and its share of the wall,
 the device kernels per step and the top kernels.
+
+``--config spill`` runs BASELINE config #2 (chip_smoke.py phase 14's)
+on the host-spill engine to ``--max-depth`` (default 19; chunk 4096,
+seg 2^21, no trace archive; ``--host-table`` adds the host-partitioned
+table with 4 partitions), after a warm-up to depth 12, with a CUDA
+event pair around every chunk step and burst iteration (a graph replay
+or an eager call): their sum is the device-busy time of the steps, and
+its complement in the wall the idle share.  The host's share is split
+by what it does (the engine's ``host_seconds``: summary syncs, segment
+copies down (d2h) and frontier and image uploads (h2d), the harvest,
+the sweep and the reseed), beside the segments, bytes, summary reads,
+captures and reseeds.  The profiler is not used: a run to depth 19
+launches millions of kernels.
 """
 
 import argparse
@@ -57,9 +70,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("1", "5", "pinned", "sim"),
-                    default="1")
-    ap.add_argument("--max-depth", type=int, default=17)
+    ap.add_argument("--config", choices=("1", "5", "pinned", "sim",
+                                         "spill"), default="1")
+    ap.add_argument("--max-depth", type=int, default=None,
+                    help="default 17 (19 for --config spill)")
+    ap.add_argument("--host-table", action="store_true",
+                    help="the host-partitioned table (--config spill)")
     ap.add_argument("--walkers", type=int, default=64,
                     help="the fleet's width (--config sim)")
     ap.add_argument("--steps", type=int, default=32,
@@ -85,6 +101,8 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.max_depth is None:
+        args.max_depth = 19 if args.config == "spill" else 17
     import torch
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA device", file=sys.stderr)
@@ -104,6 +122,8 @@ def main(argv=None):
     if args.config == "sim":
         return _print(sim_profile(torch, profile, ProfilerActivity, cs,
                                   root, card, args), args)
+    if args.config == "spill":
+        return _print(spill_profile(torch, cs, root, card, args), args)
     path = os.path.join(root, "configs/tlc_membership/raft.cfg")
     stop = True
     if args.config == "1":
@@ -274,6 +294,70 @@ def sim_profile(torch, profile, ProfilerActivity, cs, root, card, args):
                              "calls": c} for us, k, c in rows[:args.top]],
         })
     return out
+
+
+def spill_profile(torch, cs, root, card, args):
+    """Config #2 on the spill engine: the steps' device-busy time by CUDA
+    events, the wall, and the host's time by kind of work."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.engine.graph import GraphRunner
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    tmp = tempfile.mkdtemp()
+    cfg = load_model(cs._config2_cfg(root, tmp),
+                     bounds=Bounds.make(**cs.CONFIG2_BOUNDS))
+    shutil.rmtree(tmp)
+    events = []
+    run = GraphRunner.run
+
+    def timed(self, key, fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        run(self, key, fn)
+        b.record()
+        events.append((a, b))
+
+    def go(depth):
+        eng = SpillEngine(cfg, chunk=4096, seg=1 << 21, store_states=False,
+                          host_table=args.host_table, partitions=4,
+                          burst=args.burst, device="cuda")
+        eng._capture = not args.eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.check(max_depth=depth)
+        return eng, res, time.perf_counter() - t0
+
+    go(12)                                 # warm-up: allocator, kernels
+    GraphRunner.run = timed
+    try:
+        eng, res, wall = go(args.max_depth)
+    finally:
+        GraphRunner.run = run
+    torch.cuda.synchronize()
+    busy_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    host = {k: round(v, 4) for k, v in sorted(eng.host_seconds.items())}
+    return {
+        "card": card, "config": "spill", "host_table": args.host_table,
+        "max_depth": args.max_depth, "captured": not args.eager,
+        "distinct_states": res.distinct_states, "depth": res.depth,
+        "level_sizes": res.level_sizes, "wall_s": wall,
+        "states_per_s": res.distinct_states / wall,
+        "steps": len(events), "step_busy_s": busy_s,
+        "device_busy_share": busy_s / wall,
+        "device_idle_share": 1.0 - busy_s / wall,
+        "host_s": host,
+        "host_share": {k: v / wall for k, v in host.items()},
+        "segments_spilled": eng.segments_spilled,
+        "segments_by_level": eng.segments_by_level,
+        "bytes_down": eng.bytes_down, "bytes_up": eng.bytes_up,
+        "summary_syncs": eng.summary_syncs,
+        "graph_captures": eng._graphs.captures,
+        "reseeds": eng.reseeds,
+        "sweep_stage_hits": eng.sweep_stage_hits,
+        "sweep_stage_misses": eng.sweep_stage_misses,
+        "levels_fused": res.levels_fused,
+        "final_vcap": eng.VCAP,
+    }
 
 
 def front_half_cost(torch, profile, ProfilerActivity, Engine, cfg,
