@@ -109,7 +109,27 @@ Phases (any failure exits non-zero before the final line):
      resume of that checkpoint prints the same stats line; the largest
      reseed's frontier keys go through the kernel and the plain twin
      at its VCAP (equal tables, fresh and pos), and the engine's
-     reseeded cache must be that table and hold every key.
+     reseeded cache must be that table and hold every key;
+ 15. the paxos tenant, through the CLI in this process: (a) ``check
+     --spec paxos --instances 2 --no-symmetry`` must give the full
+     15,374,241-state space (3,921^2: the two instances are independent,
+     so the level sizes are the self-convolution of the one-instance
+     sizes, computed here from the port's paxos oracle) at depth 33 with
+     no violation of Agreement, Validity or OneValuePerBallot; wall,
+     states/s, graph captures, dedup launches and the peaks of device
+     memory and host RSS are printed; (b) ``check --spec paxos --servers
+     5 --chunk 4096`` (orbit-sort over 120 permutations) must print the
+     reference's stats line (11,553 states, depth 25, ``sym_canon`` 1,
+     its ``ir_fingerprint``; ``dedup_kernel`` 1 here) and its level
+     sizes, with the hard lanes and HCAP replays printed; (c) ``trace
+     --target ValueChosen`` and ``simulate --target Preempted`` give the
+     same witness (and simulate the same stats) on the card and on the
+     CPU, each replayed step by step by the paxos oracle; (d) the dedup
+     kernel against its plain twin at 15a's shapes (its VCAP and fill,
+     M = its FCAP), timed beside its bound.
+
+``python3 chip_smoke.py --phase 15`` runs phases 1, 2 and 15 alone and
+prints no result line.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -301,6 +321,37 @@ HT_CLASSIC = dict(chunk=4096, lcap=1 << 19, vcap=1 << 22,
 HT_FLAGS = ["--spill", "--host-table", "--partitions", "4", "--chunk",
             "4096", "--seg", str(1 << 21), "--vcap", str(1 << 20),
             "--no-store", "--device", "cuda"]
+# Phase 15: the paxos tenant.  (a) two independent instances with
+# symmetry off: the reachable set is the product of the one-instance
+# sets (3,921 states each), so its level sizes are the self-convolution
+# of the one-instance sizes, which the phase computes from the port's
+# paxos oracle; the run sizes its buffers for the 1.95 M-state peak
+# level and a 2^26-slot table (load 0.23 at 15,374,241 keys)
+PAXOS_FULL_ARGV = ["check", "--spec", "paxos", "--instances", "2",
+                   "--no-symmetry", "--chunk", "4096", "--lcap",
+                   str(1 << 21), "--vcap", str(1 << 26)]
+PAXOS_FULL_DISTINCT, PAXOS_FULL_DEPTH = 15_374_241, 33
+# (b) orbit-sort at 5 acceptors (120 permutations), and the reference's
+# answer: ``JAX_PLATFORMS=cpu python -m raft_tla_tpu check --spec paxos
+# --servers 5 --chunk 4096`` at this tree printed this stats line (less
+# seconds and states_per_sec), and ``Engine(PaxosConfig(n_servers=5),
+# chunk=4096).check()`` of the JAX package these level sizes
+PAXOS_SORT_ARGV = ["check", "--spec", "paxos", "--servers", "5",
+                   "--chunk", "4096"]
+PAXOS_SORT_STATS = {
+    "distinct_states": 11553, "generated_states": 75119, "depth": 25,
+    "dedup_hit_rate": 0.8462, "violations": 0, "fp_bits": 64,
+    "expected_fp_collisions": 3.6177606320842576e-12, "levels_fused": 25,
+    "burst_dispatches": 2, "burst_bailouts": 0, "guard_matmul": 1,
+    "delta_matmul": 1, "sym_canon": 1, "spec": "paxos",
+    "ir_fingerprint": "d6d7a456cec9"}
+PAXOS_SORT_LEVEL_SIZES = [2, 3, 4, 6, 12, 27, 56, 101, 166, 260, 388, 609,
+                          982, 1476, 1880, 1944, 1612, 1066, 572, 250, 94,
+                          32, 8, 2, 0]
+# (c) a witness from trace and one from simulate, card against CPU
+PAXOS_TRACE_ARGV = ["trace", "--spec", "paxos", "--target", "ValueChosen"]
+PAXOS_SIM_ARGV = ["simulate", "--spec", "paxos", "--target", "Preempted",
+                  "--walkers", "64", "--steps", "200", "--seed", "0"]
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 # about 1 ms of device sleep at the H100's 1.98 GHz boost clock
@@ -365,12 +416,13 @@ def _probes(home, pos, vcap, max_rounds):
 
 
 def kernel_phase(torch, fp, cvt, home_slots, card, W=2,
-                 fixtures="abcdefgh"):
+                 fixtures="abcdefgh", shape=None):
     """Phase 3: kernel vs plain twin on eight fixtures with W-word keys
     (2: 64-bit fingerprints; 4: ``fp128``), or on the ``fixtures``
     named; two launches must agree, and the claim rounds must equal the
     CPU model's.  Returns the measurements of fixtures (d), (f) and
-    (h)."""
+    (h).  Fixture "p" is a run's own shapes, ``shape`` = (name,
+    log2(VCAP), keys in the table, M) (phase 15d)."""
     import numpy as np
     dev = torch.device("cuda")
     rng = np.random.RandomState(2024)
@@ -483,6 +535,11 @@ def kernel_phase(torch, fp, cvt, home_slots, card, W=2,
     if "h" in fixtures:
         h = fixture_h(torch, fp, cvt, both, timed, bound, rng, W, card)
         out.update({f"spill_{k}": v for k, v in h.items()})
+    if "p" in fixtures:
+        name, log2_vcap, n_fill, M = shape
+        out.update(_loaded_fixture(torch, fp, cvt, both, timed, bound, rng,
+                                   W, card, name, log2_vcap, M, salt=15,
+                                   n_fill=n_fill))
     out["max_abs_err"] = max(errs)
     return out
 
@@ -520,15 +577,16 @@ def fixture_h(torch, fp, cvt, both, timed, bound, rng, W, card):
 
 
 def _loaded_fixture(torch, fp, cvt, both, timed, bound, rng, W, card,
-                    name, log2_vcap, M, salt):
-    """A 2^log2_vcap table filled to 35% by the kernel, then M keys with
-    duplicates (a quarter in the table, the rest drawn twice on average
-    from M/2 new keys): kernel == twin, and the kernel timed."""
+                    name, log2_vcap, M, salt, n_fill=None):
+    """A 2^log2_vcap table filled to 35% (or with ``n_fill`` keys) by the
+    kernel, then M keys with duplicates (a quarter in the table, the
+    rest drawn twice on average from M/2 new keys): kernel == twin, and
+    the kernel timed."""
     import numpy as np
     dev = torch.device("cuda")
     ctr = fp.PROBE_CLAIM_LAUNCHES
     vcap = 1 << log2_vcap
-    n_fill = int(0.35 * vcap)
+    n_fill = int(0.35 * vcap) if n_fill is None else int(n_fill)
     pool = _keys(rng, n_fill + M, W, salt=salt)
     fill = cvt.words_to_torch(pool[:, :n_fill], dev)
     table = torch.full((W, vcap), -1, dtype=torch.int32, device=dev)
@@ -550,7 +608,8 @@ def _loaded_fixture(torch, fp, cvt, both, timed, bound, rng, W, card,
     check(not d["hovf"], f"fixture {name} overflowed")
     d_ms = timed(d["src"], d["keys"], d["live"])
     d_bound, d_probes, d_bytes = bound(d, vcap)
-    log(f"phase {name} fixture (VCAP 2^{log2_vcap} at 35%, M {M}) "
+    log(f"phase {name} fixture (VCAP 2^{log2_vcap}, {n_fill} keys in, M "
+        f"{M}) "
         f"[{card}]: kernel == twin, {int(d['fresh'].sum())} fresh, "
         f"{d['rounds']} rounds; kernel {d_ms:.4f} ms (median of 5), plain "
         f"twin {d['plain_ms']:.1f} ms, {d_probes} probes, {d_bytes} bytes "
@@ -1641,7 +1700,212 @@ def check_reseed(torch, fp, eng, reseed, card):
     return dict(keys=n, vcap=vcap, plain_s=plain_s)
 
 
-def main():
+def _paxos_expected_levels():
+    """Phase 15a's level sizes in the engine's convention (levels 1..32
+    and the empty level 33): the self-convolution of the one-instance
+    sizes the port's paxos oracle gives (3,921 states, symmetry off)."""
+    import numpy as np
+    from raft_tla_tpu_torch.spec import get_spec
+    from raft_tla_tpu_torch.spec.paxos.config import PaxosConfig
+    one = get_spec("paxos").oracle_explore(PaxosConfig(symmetry=False))
+    check(one.distinct_states == 3921, f"one instance: {one.distinct_states}")
+    l1 = [1] + one.level_sizes[:-1]
+    conv = [int(x) for x in np.convolve(l1, l1)]
+    check(sum(conv) == PAXOS_FULL_DISTINCT and
+          len(conv) == PAXOS_FULL_DEPTH, f"closed form {sum(conv)}")
+    return conv[1:] + [0]
+
+
+def paxos_full_phase(torch, fp, card):
+    """Phase 15a: the full two-instance paxos space through the CLI on the
+    card: 15,374,241 states, the closed-form level sizes, no violation."""
+    want_levels = _paxos_expected_levels()
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctr.reset()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(PAXOS_FULL_ARGV + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    peak_dev = torch.cuda.max_memory_allocated()
+    rss = _peak_rss_bytes()
+    (eng, res), = seen
+    check(rc == 0, f"phase 15a exit code {rc}: {err[-300:]}")
+    stats = json.loads(out.partition("\n")[0])
+    check(res.distinct_states == PAXOS_FULL_DISTINCT and
+          stats["distinct_states"] == PAXOS_FULL_DISTINCT,
+          f"phase 15a distinct {res.distinct_states}")
+    check(res.depth == PAXOS_FULL_DEPTH, f"phase 15a depth {res.depth}")
+    check(res.level_sizes == want_levels,
+          f"phase 15a level sizes {res.level_sizes}")
+    check(stats["violations"] == 0 and not res.violations and
+          res.violations_global == 0 and res.overflow_faults == 0,
+          "phase 15a reported violations or faults")
+    check(eng.cfg.invariants == ("Agreement", "Validity",
+                                 "OneValuePerBallot"),
+          f"phase 15a invariants {eng.cfg.invariants}")
+    check(stats["spec"] == "paxos" and stats["dedup_kernel"] == 1 and
+          stats["sym_canon"] == 0, f"phase 15a stats {stats}")
+    check(launches > 0 and eng._graphs.replays > 0,
+          "phase 15a: no dedup launch or no graph replay")
+    log(f"phase 15a paxos, 2 instances, symmetry off [{card}]: "
+        f"{res.distinct_states} states == 3,921^2, depth {res.depth}, the "
+        f"closed-form level sizes (peak {max(want_levels)}), 0 violations "
+        f"of Agreement, Validity, OneValuePerBallot; generated "
+        f"{res.generated_states}")
+    log(f"phase 15a [{card}]: wall {wall:.2f} s (engine {res.seconds:.2f} "
+        f"s), {res.distinct_states / wall:.0f} states/s; levels fused "
+        f"{res.levels_fused} in {res.burst_dispatches} burst dispatches; "
+        f"graphs captured {eng._graphs.captures}, replayed "
+        f"{eng._graphs.replays}; probe_claim_insert launches {launches}; "
+        f"FCAP {eng.FCAP}, OCAP {eng.OCAP}, LCAP {eng.LCAP}, VCAP "
+        f"{eng.VCAP}; peak device memory {peak_dev} B, the process's peak "
+        f"host RSS so far {rss} B")
+    return dict(wall=wall, engine_s=res.seconds,
+                states_per_sec=res.distinct_states / wall,
+                launches=launches, captures=eng._graphs.captures,
+                replays=eng._graphs.replays, generated=res.generated_states,
+                peak_device_bytes=peak_dev, peak_rss_bytes=rss,
+                vcap=eng.VCAP, fcap=eng.FCAP,
+                fill=res.distinct_states)
+
+
+def paxos_sort_phase(torch, fp, card):
+    """Phase 15b: orbit-sort at 5 acceptors through the CLI on the card
+    against the reference's stats line and level sizes."""
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    torch.cuda.synchronize()
+    ctr.reset()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(PAXOS_SORT_ARGV + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    (eng, res), = seen
+    check(rc == 0, f"phase 15b exit code {rc}: {err[-300:]}")
+    stats = json.loads(out.partition("\n")[0])
+    got = {k: v for k, v in stats.items()
+           if k not in ("seconds", "states_per_sec", "dedup_kernel")}
+    check(got == PAXOS_SORT_STATS, f"phase 15b stats {got}")
+    check(stats["dedup_kernel"] == 1 and launches > 0,
+          "phase 15b did not launch the dedup kernel")
+    check(res.level_sizes == PAXOS_SORT_LEVEL_SIZES,
+          f"phase 15b level sizes {res.level_sizes}")
+    doublings = (eng.HCAP // eng.chunk).bit_length() - 1
+    log(f"phase 15b paxos orbit-sort, 5 acceptors [{card}]: stats == the "
+        f"reference's ({res.distinct_states} states, depth {res.depth}, "
+        f"sym_canon 1, ir_fingerprint {stats['ir_fingerprint']}), level "
+        f"sizes == the reference's; hard lanes {res.hard_lanes} in "
+        f"{res.hard_chunks} chunks (at most {res.hard_chunk_max}), HCAP "
+        f"{eng.HCAP} after {doublings} doubling replays; wall {wall:.2f} "
+        f"s; graphs captured {eng._graphs.captures}, replayed "
+        f"{eng._graphs.replays}; probe_claim_insert launches {launches}")
+    return dict(wall=wall, launches=launches, hard_lanes=res.hard_lanes,
+                hcap=eng.HCAP, hcap_replays=doublings,
+                captures=eng._graphs.captures)
+
+
+def _witness_labels(text):
+    """The step labels a witness printout lists, Init first."""
+    body = text.partition("witness for ")[2].partition("\n")[2]
+    return [ln.split(None, 1)[1] for ln in body.splitlines()
+            if ln.strip() and ln.split(None, 1)[0].isdigit()]
+
+
+def _paxos_replay(labels, target):
+    """Replay a witness label by label through the port's paxos oracle:
+    every step an oracle successor, the end state violating ``target``."""
+    from raft_tla_tpu_torch.spec.paxos import model
+    from raft_tla_tpu_torch.spec.paxos.config import PaxosConfig
+    cfg = PaxosConfig()
+    check(labels[0] == "Init", f"witness starts at {labels[0]}")
+    sv, h = model.init_state(cfg)
+    for lb in labels[1:]:
+        nxt = [(s2, h2) for lab, s2, h2 in model.successors(sv, h, cfg)
+               if lab == lb]
+        check(len(nxt) == 1, f"witness step {lb} is not an oracle "
+              "successor")
+        sv, h = nxt[0]
+    check(not model.INVARIANTS[target](sv, h, cfg),
+          f"the witness's end state does not violate {target}")
+    return len(labels) - 1
+
+
+def paxos_witness_phase(torch, fp, card):
+    """Phase 15c: ``trace --target ValueChosen`` and ``simulate --target
+    Preempted`` on the card and on the CPU: equal witnesses and stats,
+    each replayed by the paxos oracle."""
+    import re
+    from raft_tla_tpu_torch.sim import SimEngine
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    out = {}
+    for name, argv, cls, method in (
+            ("trace", PAXOS_TRACE_ARGV, None, "check"),
+            ("simulate", PAXOS_SIM_ARGV, SimEngine, "run")):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            ctr.reset()
+            t0 = time.perf_counter()
+            rc, text, err, seen = cli_run(argv + ["--device", dev], cls,
+                                          method)
+            runs[dev] = (rc, text, ctr.count, time.perf_counter() - t0,
+                         seen[0][0])
+            ctr.reset()
+        g, c = runs["cuda"], runs["cpu"]
+        check(g[0] == c[0] == 0, f"phase 15c {name} exit codes "
+              f"{g[0]}, {c[0]}")
+        if name == "simulate":
+            sg, sc = (json.loads(r[1].partition("\n")[0]) for r in (g, c))
+            for st in (sg, sc):
+                for k in ("seconds", "walker_steps_per_sec", "platform"):
+                    st.pop(k)
+            check(sg == sc, f"phase 15c simulate stats {sg} != {sc}")
+            check(g[4]._graphs.replays > 0,
+                  "phase 15c simulate replayed no captured step")
+        else:
+            check(g[2] > 0, "phase 15c trace launched no dedup kernel")
+
+        def norm(t):
+            return re.sub(r"[0-9.]+s\):", "Ts):",
+                          t.partition("witness for ")[2])
+        check(norm(g[1]) == norm(c[1]), f"phase 15c {name}: card witness "
+              f"!= CPU witness")
+        labels = _witness_labels(g[1])
+        target = argv[argv.index("--target") + 1]
+        steps = _paxos_replay(labels, target)
+        log(f"phase 15c {name} --spec paxos --target {target} [{card}]: "
+            f"{steps}-step witness, card == CPU, replayed by the paxos "
+            f"oracle; card {g[3]:.2f} s, CPU {c[3]:.2f} s; dedup launches "
+            f"{g[2]}")
+        out[name] = dict(steps=steps, walls=(g[3], c[3]), launches=g[2])
+    return out
+
+
+def paxos_phase(torch, fp, cvt, home_slots, card):
+    """Phase 15: the paxos tenant (a-d)."""
+    t0 = time.perf_counter()
+    a = paxos_full_phase(torch, fp, card)
+    b = paxos_sort_phase(torch, fp, card)
+    c = paxos_witness_phase(torch, fp, card)
+    # (d) the dedup kernel at 15a's shapes: its final table size and
+    # fill, and M = its FCAP
+    log2_vcap = a["vcap"].bit_length() - 1
+    d = kernel_phase(torch, fp, cvt, home_slots, card, fixtures="p",
+                     shape=("15d paxos 15a-shaped", log2_vcap, a["fill"],
+                            a["fcap"]))
+    log(f"phase 15 [{card}]: {time.perf_counter() - t0:.1f} s")
+    return dict(full=a, sort=b, witness=c, kernel=d,
+                wall=time.perf_counter() - t0)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--phase", "15"]):
+        print("usage: python3 chip_smoke.py [--phase 15]", file=sys.stderr)
+        return 2
+    only_paxos = bool(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1671,6 +1935,16 @@ def main():
     cuda_ext.build(verbose=True)            # prints ptxas's resource use
     cuda_ext.library()
     log(f"phase 2 build and load: {time.perf_counter() - t0:.1f} s")
+    if only_paxos:
+        # phases 1, 2 and 15 alone: no result line
+        t15 = paxos_phase(torch, fp, cvt, home_slots, card)
+        check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
+                      for m in sys.modules),
+              "JAX or its package was imported")
+        log(json.dumps({"paxos": t15}))
+        log(f"chip_smoke --phase 15: passed in "
+            f"{time.perf_counter() - t_start:.1f} s (no result line)")
+        return 0
     # phase 3, with 64-bit keys and then with fp128's 4-word keys
     meas = kernel_phase(torch, fp, cvt, home_slots, card)
     meas4 = kernel_phase(torch, fp, cvt, home_slots, card, W=4,
@@ -1795,6 +2069,8 @@ def main():
         t14b = host_table_phase(torch, fp, here, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # phase 15: the paxos tenant
+    t15 = paxos_phase(torch, fp, cvt, home_slots, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -1837,7 +2113,16 @@ def main():
         "config1_supervised_launches": t12["launches"],
         "sim_seeded_check_launches": t13["check_launches"],
         "spill_launches": t14["launches"],
-        "host_table_launches": t14b["launches"]}],
+        "host_table_launches": t14b["launches"],
+        "paxos_2inst_launches": t15["full"]["launches"],
+        "paxos_sort5_launches": t15["sort"]["launches"],
+        "paxos_trace_launches": t15["witness"]["trace"]["launches"],
+        "paxos_shape_ms": t15["kernel"]["ms"],
+        "paxos_shape_plain_ms": t15["kernel"]["plain_ms"],
+        "paxos_shape_bound_ms": t15["kernel"]["bound_ms"],
+        "paxos_shape_rounds": t15["kernel"]["rounds"],
+        "paxos_shape_of": "phase 15d: 15a's VCAP and fill, M = its FCAP"}],
+        "paxos": t15,
         "spill": {"config2_depth20": t14, "host_table_depth19": t14b},
         "sim": {
             "hunt_wall_s": t13["wall"], "hunt_run_s": t13["run_s"],

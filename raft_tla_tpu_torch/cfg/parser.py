@@ -18,6 +18,10 @@ ModelConfig:
     against the predicate registries (singular and plural forms, the
     plural introducing an indented name list, as in the reference cfgs).
 
+``load_paxos_model`` and ``paxos_config_from_obj`` are the ``--spec
+paxos`` front-ends: a TLC .cfg of Paxos constants, or a JSON object of
+them, onto a ``PaxosConfig``.
+
 In-spec search bounds (MaxLogLength etc., raft.tla:22-30) are NOT
 cfg-settable in the reference — editing the spec is required — so
 ``read_bounds_from_spec`` lifts them by scanning the sibling ``raft.tla``
@@ -180,6 +184,155 @@ def max_inflight_from_spec(spec_path: Path, n_servers: int) -> Optional[int]:
                  text):
         return 2 * n_servers * n_servers
     return None
+
+
+# ---------------------------------------------------------------------------
+# Paxos front-ends (--spec paxos).  Two entry points share one
+# validated construction path: ``paxos_config_from_obj`` (the JSON /
+# inline-dict constants form the CLI and serve/jobs consume) and
+# ``load_paxos_model`` (the TLC .cfg form), which
+# round-trip onto identical PaxosConfig objects (the reference's
+# ``cfg/parser.py``; tests/test_torch_paxos_cli.py holds both).
+# ---------------------------------------------------------------------------
+
+_PAXOS_ALIAS = {"acceptors": "n_servers", "servers": "n_servers",
+                "ballots": "n_ballots", "values": "n_values",
+                "instances": "n_instances"}
+_PAXOS_INT_KEYS = ("n_servers", "n_ballots", "n_values", "n_instances")
+
+# TLC .cfg CONSTANT names -> PaxosConfig bound (singular and plural
+# forms, as the reference raft cfgs accept for their sections)
+_PAXOS_CFG_CONSTS = {
+    "Acceptor": "n_servers", "Acceptors": "n_servers",
+    "Ballot": "n_ballots", "Ballots": "n_ballots",
+    "Value": "n_values", "Values": "n_values",
+    "Instance": "n_instances", "Instances": "n_instances",
+    "NumInstances": "n_instances",
+}
+
+
+def paxos_config_from_obj(raw: Dict, where: str = "paxos config"):
+    """Constants dict -> PaxosConfig, with clear errors naming the
+    offending key.  Accepted keys: acceptors/servers, ballots, values,
+    instances (ints), symmetry/fp128 (bools), invariants (names from
+    the paxos registry)."""
+    from ..spec import get_spec
+    from ..spec.paxos.config import PaxosConfig
+    if not isinstance(raw, dict):
+        raise CfgError(
+            f"{where}: paxos constants must be a JSON object "
+            f"(got {type(raw).__name__})")
+    kw = {}
+    for k, v in raw.items():
+        kk = _PAXOS_ALIAS.get(k, k)
+        if kk not in _PAXOS_INT_KEYS + ("symmetry", "fp128",
+                                        "invariants"):
+            raise CfgError(f"{where}: unknown paxos config key {k!r}")
+        if kk in ("symmetry", "fp128"):
+            if not isinstance(v, bool):
+                raise CfgError(
+                    f"{where}: {k} must be a JSON bool (got {v!r})")
+        elif kk == "invariants":
+            known = get_spec("paxos").known_invariants
+            bad = [nm for nm in v if nm not in known]
+            if bad:
+                raise CfgError(
+                    f"{where}: unknown invariant(s) "
+                    f"{', '.join(map(repr, bad))} for spec 'paxos'; "
+                    f"known: {', '.join(sorted(known))}")
+            v = tuple(v)
+        elif isinstance(v, bool) or not isinstance(v, int):
+            raise CfgError(
+                f"{where}: {k} must be a JSON integer (got {v!r})")
+        kw[kk] = v
+    try:
+        return PaxosConfig(**kw)
+    except ValueError as e:
+        raise CfgError(f"{where}: {e}") from e
+
+
+def load_paxos_model(cfg_path) -> "object":
+    """TLC ``.cfg`` front-end for ``--spec paxos``: CONSTANTS map onto
+    PaxosConfig bounds — Acceptor/Value as model-value sets (their
+    cardinality is the bound; values must be the dense 0..N-1 indices
+    the packed layout uses), Ballot as a 0..N-1 set or an int count,
+    Instance(s) as an int — SYMMETRY toggles acceptor canonicalization
+    (a cfg with no SYMMETRY line runs symmetry-off, TLC semantics),
+    and INVARIANT names resolve against the paxos registry.  Quorum
+    must NOT be bound: the engine derives all majorities of Acceptor,
+    the standard Paxos.tla instantiation.  Every other key errors by
+    name.  Round-trips with the JSON constants path
+    (``paxos_config_from_obj``)."""
+    cfg_path = Path(cfg_path)
+    raw = parse_cfg_text(cfg_path.read_text())
+    consts = raw["constants"]
+    # names referenced inside any set binding are model values (a1 = 1)
+    refd = set()
+    for val in consts.values():
+        if val[0] == "set":
+            refd.update(val[1])
+    kw: Dict[str, object] = {}
+    for name, val in consts.items():
+        if name in _PAXOS_CFG_CONSTS:
+            key = _PAXOS_CFG_CONSTS[name]
+            if val[0] == "set":
+                elems = _resolve_set(consts, val)
+                if key in ("n_ballots", "n_values") and \
+                        sorted(elems) != list(range(len(elems))):
+                    raise CfgError(
+                        f"{cfg_path}: {name} must be the contiguous "
+                        f"set 0..N-1 (got {sorted(elems)}) — ballots "
+                        "and values are dense indices in the packed "
+                        "layout")
+                kw[key] = len(elems)
+            elif val[0] == "int":
+                kw[key] = val[1]
+            else:
+                raise CfgError(
+                    f"{cfg_path}: {name} must be a set or an int "
+                    f"(got {val[1]!r})")
+        elif name == "Quorum":
+            raise CfgError(
+                f"{cfg_path}: Quorum is not cfg-settable — the engine "
+                "derives all majorities of Acceptor (the standard "
+                "Paxos.tla instantiation); remove the Quorum binding")
+        elif val[0] == "int" and name in refd:
+            pass          # model-value binding, consumed by the sets
+        else:
+            raise CfgError(
+                f"{cfg_path}: unsupported paxos CONSTANT {name!r} — "
+                "supported: " +
+                ", ".join(sorted(set(_PAXOS_CFG_CONSTS))))
+    if raw["init"] not in (None, "Init"):
+        raise CfgError(f"{cfg_path}: unsupported INIT {raw['init']!r}")
+    if raw["view"] is not None:
+        raise CfgError(
+            f"{cfg_path}: VIEW is not supported for spec 'paxos' — "
+            "state identity is the full packed state; remove the "
+            "VIEW line")
+    if raw["specification"] not in (None, "Spec"):
+        raise CfgError(
+            f"{cfg_path}: unsupported SPECIFICATION "
+            f"{raw['specification']!r}")
+    if raw["next"] not in (None, "Next"):
+        raise CfgError(
+            f"{cfg_path}: unsupported NEXT {raw['next']!r} for spec "
+            "'paxos' (only the full Next relation exists)")
+    if raw["properties"]:
+        raise CfgError(
+            f"{cfg_path}: temporal PROPERTIES are not supported: "
+            f"{raw['properties']}")
+    if raw["constraints"] or raw["action_constraints"]:
+        raise CfgError(
+            f"{cfg_path}: spec 'paxos' declares no constraints / "
+            "action constraints (the bounded space is finite without "
+            "them)")
+    # delegate invariant validation + construction to the JSON path's
+    # validator, so the two front-ends share one tail and cannot drift
+    kw["symmetry"] = raw["symmetry"] is not None
+    if raw["invariants"]:
+        kw["invariants"] = list(raw["invariants"])
+    return paxos_config_from_obj(kw, where=str(cfg_path))
 
 
 def load_model(cfg_path, variant: Optional[str] = None,

@@ -18,10 +18,15 @@ check|trace|simulate``.
                name); ``--emit-seed FILE`` writes the witness end state
                as a seed for ``check --seed-trace FILE``.
 
-The punctuated search runs from the cfg alone (prefix pins and
-ACTION_CONSTRAINTS) or from a seed file.  ``--engine oracle`` runs the
-plain-Python oracle (``models/explore.py``) instead of the device
-engine ("tpu", the reference CLI's name for it).  The bounds and model
+``--spec paxos`` checks the second tenant (``spec/paxos``) with the same
+engines and flags: the cfg positional is then optional (none or
+"default" is the stock model, else a TLC .cfg or a JSON file of Paxos
+constants), ``--servers`` is the acceptor count, and ``--ballots``,
+``--paxos-values`` and ``--instances`` bound the rest, as in the
+reference CLI.  The punctuated search runs from the cfg alone (prefix
+pins and ACTION_CONSTRAINTS) or from a seed file.  ``--engine oracle``
+runs the plain-Python oracle (``models/explore.py``) instead of the
+device engine ("tpu", the reference CLI's name for it).  The bounds and model
 flags override the cfg's as the reference CLI's do, and ``check
 --invariant/--constraint/--action-constraint`` add to the cfg's lists.
 ``--device`` picks the device (default cuda; the run raises when CUDA
@@ -116,10 +121,87 @@ def _apply_overrides(cfg, args, ir):
     return cfg.with_(**kw) if kw else cfg
 
 
-def _load_cfg(args):
-    """(SpecIR handle, model config)."""
+def _load_paxos_model(args):
+    """--spec paxos config assembly, the reference CLI's: the cfg
+    positional is optional (None or "default" -> the stock model; a
+    ``.cfg`` path -> the TLC CONSTANTS front-end; anything else -> a JSON
+    file of constants), then the overrides apply (--servers = acceptors,
+    --ballots/--paxos-values/--instances, --symmetry, --fp128,
+    --invariant).  The raft-only flags, constraints and action
+    constraints are refused."""
+    from .cfg.parser import (CfgError, load_paxos_model,
+                             paxos_config_from_obj)
     from .spec import get_spec
-    ir = get_spec("raft")
+    ir = get_spec("paxos")
+    raft_only = [flag for flag, attr in (
+        ("--next", "next_family"), ("--max-terms", "max_terms"),
+        ("--max-log-length", "max_log_length"),
+        ("--max-timeouts", "max_timeouts"),
+        ("--max-client-requests", "max_client_requests"),
+        ("--max-restarts", "max_restarts"),
+        ("--init-servers", "init_servers"))
+        if getattr(args, attr, None) is not None]
+    if raft_only:
+        raise SystemExit(
+            f"{', '.join(raft_only)} are raft-only bounds/toggles — "
+            "spec 'paxos' is bounded by --ballots/--paxos-values/"
+            "--instances/--servers instead")
+    if args.cfg and args.cfg != "default":
+        try:
+            if args.cfg.endswith(".cfg"):
+                cfg = load_paxos_model(args.cfg)
+            else:
+                with open(args.cfg) as fh:
+                    raw = json.load(fh)
+                cfg = paxos_config_from_obj(raw, where=args.cfg)
+        except CfgError as e:
+            raise SystemExit(str(e))
+    else:
+        cfg = ir.default_config()
+    kw = {}
+    if args.servers is not None:
+        kw["n_servers"] = args.servers
+    if getattr(args, "ballots", None) is not None:
+        kw["n_ballots"] = args.ballots
+    if getattr(args, "paxos_values", None) is not None:
+        kw["n_values"] = args.paxos_values
+    if getattr(args, "instances", None) is not None:
+        kw["n_instances"] = args.instances
+    if args.symmetry is not None:
+        kw["symmetry"] = args.symmetry
+    if args.fp128:
+        kw["fp128"] = True
+    try:
+        if kw:
+            cfg = cfg.with_(**kw)
+    except ValueError as e:
+        raise SystemExit(f"paxos config: {e}")
+    if getattr(args, "invariants", None):
+        for nm in args.invariants:
+            if nm not in ir.known_invariants:
+                raise SystemExit(
+                    f"unknown invariant {nm!r} for spec 'paxos'; "
+                    f"known: {', '.join(sorted(ir.known_invariants))}")
+        cfg = cfg.with_(invariants=tuple(dict.fromkeys(
+            cfg.invariants + tuple(args.invariants))))
+    if getattr(args, "constraint_overrides", None) or \
+            getattr(args, "action_constraints", None):
+        raise SystemExit(
+            "spec 'paxos' declares no constraints / action "
+            "constraints (the bounded space is finite without them)")
+    return cfg
+
+
+def _load_cfg(args):
+    """(SpecIR handle, model config) for the selected --spec."""
+    from .spec import get_spec
+    ir = get_spec(args.spec)
+    if args.spec == "paxos":
+        return ir, _load_paxos_model(args)
+    if not args.cfg:
+        raise SystemExit(
+            "a TLC .cfg path is required for --spec raft "
+            "(only --spec paxos has a built-in default model)")
     return ir, _apply_overrides(load_model(args.cfg, bounds=None), args, ir)
 
 
@@ -128,12 +210,12 @@ MODE_KEYS = ("guard_matmul", "dedup_kernel", "delta_matmul", "sym_canon")
 
 
 def check_stats(counters: dict, seconds: float, n_violations: int,
-                fp_bits=None, ir_fp=None) -> dict:
+                fp_bits=None, ir_fp=None, spec: str = "raft") -> dict:
     """The ``check`` stats payload, with the reference's key names and
     order (``obs/metrics.py`` ``check_stats``): ``pin_interior_states``
     only when nonzero, the fingerprint, burst and mode keys only for the
-    engine (``fp_bits`` given), the spec's name and its IR fingerprint
-    (``ir_fp``) last."""
+    engine (``fp_bits`` given), the run's spec name and its IR
+    fingerprint (``ir_fp``) last."""
     distinct = int(counters["distinct_states"])
     gen = int(counters["generated_states"])
     out = {
@@ -154,7 +236,7 @@ def check_stats(counters: dict, seconds: float, n_violations: int,
         for k in ("levels_fused", "burst_dispatches",
                   "burst_bailouts") + MODE_KEYS:
             out[k] = int(counters[k])
-    out["spec"] = "raft"
+    out["spec"] = spec
     if ir_fp is not None:
         out["ir_fingerprint"] = ir_fp
     return out
@@ -262,14 +344,14 @@ def _check_retry_flags(args):
     return None
 
 
-def _fam_density(args):
-    """Parse --fam-cap-density into args.fam_density; an error message
-    (for exit 2) or None."""
+def _fam_density(args, ir):
+    """Parse --fam-cap-density against the spec's families into
+    args.fam_density; an error message (for exit 2) or None."""
     args.fam_density = None
     if args.fam_cap_density:
         from .engine.expand import parse_fam_density
         try:
-            args.fam_density = parse_fam_density(args.fam_cap_density)
+            args.fam_density = parse_fam_density(args.fam_cap_density, ir)
         except ValueError as e:
             return f"--fam-cap-density: {e}"
     return None
@@ -428,7 +510,7 @@ def _check(args, ir, cfg) -> int:
             distinct_states=r.distinct_states,
             generated_states=r.generated_states, depth=r.depth,
             pin_interior_states=r.pin_interior_states), secs, len(viol),
-            ir_fp=ir.fingerprint())
+            ir_fp=ir.fingerprint(), spec=ir.name)
     else:
         if args.host_table and not args.spill:
             print("--host-table composes with the spill engine: add "
@@ -439,7 +521,7 @@ def _check(args, ir, cfg) -> int:
                   f"{args.burst_levels}); use --no-burst to disable "
                   "the fused-level path", file=sys.stderr)
             return 2
-        err = _fam_density(args)
+        err = _fam_density(args, ir)
         if err:
             print(err, file=sys.stderr)
             return 2
@@ -499,7 +581,7 @@ def _check(args, ir, cfg) -> int:
                   file=sys.stderr)
         out = check_stats(_engine_counters(r), r.seconds, len(viol),
                           fp_bits=128 if args.fp128 else 64,
-                          ir_fp=ir.fingerprint())
+                          ir_fp=ir.fingerprint(), spec=ir.name)
     print(json.dumps(out))
     if args.stats_json:
         with open(args.stats_json, "w") as fh:
@@ -544,7 +626,7 @@ def cmd_trace(args) -> int:
             v = r.violations[0]
             _write_seed(args.emit_seed, ir.state_to_obj(v.state, v.hist))
         return 0
-    err = _fam_density(args)
+    err = _fam_density(args, ir)
     if err:
         print(err, file=sys.stderr)
         return 2
@@ -572,7 +654,7 @@ def cmd_trace(args) -> int:
             json.dump(check_stats(_engine_counters(r), r.seconds,
                                   len(r.violations),
                                   fp_bits=128 if args.fp128 else 64,
-                                  ir_fp=ir.fingerprint()),
+                                  ir_fp=ir.fingerprint(), spec=ir.name),
                       fh)
     return 0
 
@@ -649,7 +731,16 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
-        sp.add_argument("cfg", help="TLC model file (raft.cfg)")
+        sp.add_argument("cfg", nargs="?", default=None,
+                        help="model file: a TLC .cfg path (--spec raft; "
+                             "required) or a TLC .cfg / JSON constants "
+                             "file / 'default' (--spec paxos; optional)")
+        sp.add_argument("--spec", choices=("raft", "paxos"),
+                        default="raft",
+                        help="which spec to check: the Raft "
+                             "membership-change spec (default) or "
+                             "bounded single-decree/multi-instance Paxos "
+                             "— same engines, same flags")
         sp.add_argument("--engine", choices=("tpu", "oracle"),
                         default="tpu",
                         help="the device engine (default; named as the "
@@ -674,6 +765,14 @@ def main(argv=None) -> int:
         sp.add_argument("--max-restarts", type=int, default=None)
         sp.add_argument("--fp128", action="store_true",
                         help="128-bit fingerprints (4-word dedup keys)")
+        # --spec paxos constants (ignored for raft)
+        sp.add_argument("--ballots", type=int, default=None,
+                        help="paxos: ballots 0..N-1 (--spec paxos)")
+        sp.add_argument("--paxos-values", type=int, default=None,
+                        help="paxos: values 0..N-1 (--spec paxos)")
+        sp.add_argument("--instances", type=int, default=None,
+                        help="paxos: independent consensus instances "
+                             "(--spec paxos)")
         sp.add_argument("--max-depth", type=int, default=10 ** 9)
         sp.add_argument("--max-states", type=int, default=10 ** 9)
         sp.add_argument("--chunk", type=int, default=512)
@@ -716,6 +815,14 @@ def main(argv=None) -> int:
                              "min(lanes_f, k); unknown families and "
                              "non-positive k are refused")
         sp.add_argument("--verbose", "-v", action="store_true")
+
+    # --target help comes from each spec's scenario registry
+    from .spec import get_spec
+    target_help = ("scenario property of the active --spec (raft: " +
+                   ", ".join(get_spec("raft").scenario_properties) +
+                   "; paxos: " +
+                   ", ".join(get_spec("paxos").scenario_properties) +
+                   ")")
 
     pc = sub.add_parser("check", help="exhaustive model check")
     common(pc)
@@ -833,7 +940,7 @@ def main(argv=None) -> int:
                     help="enable an extra ACTION_CONSTRAINT (repeatable)")
     pt = sub.add_parser("trace", help="witness trace for a scenario")
     common(pt)
-    pt.add_argument("--target", required=True)
+    pt.add_argument("--target", required=True, help=target_help)
     pt.add_argument("--emit-seed", default=None, metavar="FILE",
                     help="write the witness end state to FILE as a seed "
                          "for `check --seed-trace` (punctuated search)")
@@ -845,7 +952,7 @@ def main(argv=None) -> int:
              "walkers sample enabled actions uniformly, for configs past "
              "the exhaustive engines' reach")
     common(ps)
-    ps.add_argument("--target", required=True)
+    ps.add_argument("--target", required=True, help=target_help)
     ps.add_argument("--walkers", type=int, default=256,
                     help="fleet width W")
     ps.add_argument("--steps", type=int, default=10000,

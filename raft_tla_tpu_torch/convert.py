@@ -3,69 +3,82 @@ port's tensors.
 
 The checker has no weights; what crosses between the two packages (and
 between the engine's device buffers and its host archives) is data:
-encoded state rows (the ``ops.codec.encode`` dict, batch-major, message
+encoded state rows (a spec codec's ``encode`` dict, batch-major, bit
 words as uint32), visited tables u32[W, VCAP] and key batches u32[W, M].
 The port carries u32 as int32 bit patterns and state rows batch-last;
-these functions convert both ways without changing a bit.
+these functions convert both ways without changing a bit.  Which state
+keys are u32 words is the spec's ``SpecIR.u32_keys`` (raft's ``bag``,
+paxos's ``msgs``): a caller that knows its spec passes them, and the
+default is every spec's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Union
+from typing import Collection, Dict, Sequence, Union
 
 import numpy as np
 import torch
 
+from .spec import ALL_U32_KEYS
+
 U32Words = Union[np.ndarray, Sequence[np.ndarray]]
 
 
-def rows_to_torch(arrs: Dict[str, np.ndarray], device="cpu"):
+def rows_to_torch(arrs: Dict[str, np.ndarray], device="cpu",
+                  u32_keys: Collection[str] = ALL_U32_KEYS):
     """Encoded rows {key: [N, ...]} -> batch-last int32 tensors."""
     out = {}
     for k, v in arrs.items():
         a = np.moveaxis(np.asarray(v), 0, -1)
-        a = a.astype(np.uint32).view(np.int32) if k == "bag" \
+        a = a.astype(np.uint32).view(np.int32) if k in u32_keys \
             else a.astype(np.int32)
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return out
 
 
-def arrays_to_numpy(arrs: Dict[str, torch.Tensor]
+def arrays_to_numpy(arrs: Dict[str, torch.Tensor],
+                    u32_keys: Collection[str] = ALL_U32_KEYS
                     ) -> Dict[str, np.ndarray]:
     """State tensors in any layout -> numpy in the codec's dtypes (int32,
-    bag uint32).  Always a copy: on the CPU ``.numpy()`` would alias the
-    tensor's storage."""
+    the u32 word keys uint32).  Always a copy: on the CPU ``.numpy()``
+    would alias the tensor's storage."""
     out = {}
     for k, v in arrs.items():
         a = v.to(torch.int32).cpu().numpy().copy()
-        out[k] = a.view(np.uint32) if k == "bag" else a
+        out[k] = a.view(np.uint32) if k in u32_keys else a
     return out
 
 
-def rows_to_numpy(svT: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def rows_to_numpy(svT: Dict[str, torch.Tensor],
+                  u32_keys: Collection[str] = ALL_U32_KEYS
+                  ) -> Dict[str, np.ndarray]:
     """Batch-last tensors -> encoded rows {key: [N, ...]} in the codec's
     dtypes, a copy."""
-    return arrays_to_numpy({k: v.movedim(-1, 0) for k, v in svT.items()})
+    return arrays_to_numpy({k: v.movedim(-1, 0) for k, v in svT.items()},
+                           u32_keys)
 
 
-def storage_to_numpy(arrs: Dict[str, torch.Tensor]
+def storage_to_numpy(arrs: Dict[str, torch.Tensor],
+                     u32_keys: Collection[str] = ALL_U32_KEYS
                      ) -> Dict[str, np.ndarray]:
     """State tensors in their storage dtypes -> numpy in the same dtypes
-    (``bag`` as uint32: the JAX engine's archives and checkpoint leaves),
-    C-contiguous and always a copy."""
+    (the u32 word keys as uint32: the JAX engine's archives and
+    checkpoint leaves), C-contiguous and always a copy."""
     out = {}
     for k, v in arrs.items():
         a = v.to("cpu", copy=True,
                  memory_format=torch.contiguous_format).numpy()
-        out[k] = a.view(np.uint32) if k == "bag" else a
+        out[k] = a.view(np.uint32) if k in u32_keys else a
     return out
 
 
-def storage_rows_to_numpy(svT: Dict[str, torch.Tensor]
+def storage_rows_to_numpy(svT: Dict[str, torch.Tensor],
+                          u32_keys: Collection[str] = ALL_U32_KEYS
                           ) -> Dict[str, np.ndarray]:
     """Batch-last storage tensors -> batch-major rows in the storage
     dtypes (the archives' layout), a copy."""
-    return storage_to_numpy({k: v.movedim(-1, 0) for k, v in svT.items()})
+    return storage_to_numpy({k: v.movedim(-1, 0) for k, v in svT.items()},
+                            u32_keys)
 
 
 def words_to_torch(words: U32Words, device="cpu") -> torch.Tensor:

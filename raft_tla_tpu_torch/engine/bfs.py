@@ -167,7 +167,8 @@ class _Level:
         dev = eng.device
         one = eng.ir.narrow(eng.lay, rows_to_torch(
             {k: v[None] for k, v in eng.ir.encode(
-                eng.lay, *eng.ir.init_state(eng.cfg)).items()}, dev))
+                eng.lay, *eng.ir.init_state(eng.cfg)).items()}, dev,
+            eng.ir.u32_keys))
         self.W = eng.W
         self.set_table(table)
         self.lvl = {k: torch.zeros(v.shape[:-1] + (lcap,), dtype=v.dtype,
@@ -918,7 +919,8 @@ class Engine:
     def _first_seen(self, rows: Dict[str, np.ndarray]):
         """(keys u32 [n, W], the first-seen row of each distinct
         canonical fingerprint, ascending)."""
-        fp = self.fpr.fingerprint_batch_T(rows_to_torch(rows, self.device))
+        fp = self.fpr.fingerprint_batch_T(
+            rows_to_torch(rows, self.device, self.ir.u32_keys))
         rk = words_to_numpy(fp).T                              # [n, W]
         _u, first = np.unique(fp_key(rk), return_index=True)
         first.sort()
@@ -954,7 +956,8 @@ class Engine:
         res.pin_interior_states = len(first)
         if not self.inv_names:
             return
-        inv, _con = self._phase2_T(rows_to_torch(rows, self.device))
+        inv, _con = self._phase2_T(
+            rows_to_torch(rows, self.device, self.ir.u32_keys))
         bad = (~inv).cpu().numpy()[:, first]
         for j, nm in enumerate(self.inv_names):
             for s in np.nonzero(bad[j])[0]:
@@ -1036,7 +1039,7 @@ class Engine:
         st = _Level(self, self.LCAP, self._new_table(self.VCAP))
         # roots enter through the same admit path as every level: host
         # placement into the empty table, then finalize
-        rows = rows_to_torch(roots, self.device)
+        rows = rows_to_torch(roots, self.device, self.ir.u32_keys)
         rows_n = self.ir.narrow(self.lay, rows)
         for k, v in st.lvl.items():
             v[..., :n_roots] = rows_n[k]
@@ -1069,7 +1072,8 @@ class Engine:
             claims=np.full(st.vcap, 0xFFFFFFFF, np.uint32),
             cidx=np.zeros(self.FCAP, np.int32),
             oidx=np.zeros(self.OCAP, np.int32),
-            lvl=storage_to_numpy(st.lvl), front=storage_to_numpy(st.front))
+            lvl=storage_to_numpy(st.lvl, self.ir.u32_keys),
+            front=storage_to_numpy(st.front, self.ir.u32_keys))
         for k in _CARRY_ROWS + _CARRY_FLAGS:
             carry[k] = host(getattr(st, k))
         for k in _CARRY_COUNTERS:
@@ -1110,7 +1114,7 @@ class Engine:
         for part in ("lvl", "front"):
             for k, v in getattr(st, part).items():
                 a = carry[part][k]
-                load(v, a.view(np.int32) if k == "bag" else a,
+                load(v, a.view(np.int32) if k in self.ir.u32_keys else a,
                      _leaf_name((part, k)))
         for k in _CARRY_ROWS + _CARRY_FLAGS:
             load(getattr(st, k), carry[k], _leaf_name((k,)))
@@ -1276,7 +1280,7 @@ class Engine:
         if n_front:
             rows = rows_to_torch({k: np.asarray(v)
                                   for k, v in img.rows.items()},
-                                 self.device)
+                                 self.device, self.ir.u32_keys)
             rows_n = self.ir.narrow(self.lay, rows)
             for k, v in st.front.items():
                 v[..., :n_front] = rows_n[k]
@@ -1369,8 +1373,9 @@ class Engine:
             res.violations_global += n_viol
             rows = None
             if self.store_states or n_viol:
-                rows = storage_rows_to_numpy({k: v[..., :n_lvl]
-                                              for k, v in st.front.items()})
+                rows = storage_rows_to_numpy(
+                    {k: v[..., :n_lvl] for k, v in st.front.items()},
+                    self.ir.u32_keys)
             if self.store_states:
                 self._archive_level(st.lpar[:n_lvl].cpu().numpy().copy(),
                                     st.llane[:n_lvl].cpu().numpy().copy(),
@@ -1394,7 +1399,8 @@ class Engine:
             arch = None
             if self.store_states or meta[3]:
                 arch = (r.opar.cpu().numpy(), r.olane.cpu().numpy(),
-                        storage_to_numpy(r.ost), r.oinv.cpu().numpy())
+                        storage_to_numpy(r.ost, self.ir.u32_keys),
+                        r.oinv.cpu().numpy())
 
             def archive(li, n_lvl):
                 if self.store_states:

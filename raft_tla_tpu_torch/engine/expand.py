@@ -240,7 +240,8 @@ class Expander:
         from ..convert import rows_to_torch
         one = rows_to_torch({k: np.asarray(v)[None] for k, v in
                              self.ir.encode(self.lay, *self.ir.init_state(
-                                 self.cfg)).items()})
+                                 self.cfg)).items()},
+                            u32_keys=self.ir.u32_keys)
         phi = self.kern.guard_features(one, self.kern.derived(one))
         if phi.shape[0] != self._gW.shape[0] or \
                 int(phi.min()) < 0 or int(phi.max()) > 1:
@@ -662,14 +663,14 @@ class Expander:
         and the tests' path)."""
         from ..convert import arrays_to_numpy, rows_to_torch
         sv = rows_to_torch({k: np.asarray(v)[None] for k, v in
-                            arrs.items()}, self.device)
+                            arrs.items()}, self.device, self.ir.u32_keys)
         ok = self.guards_T(sv, self.derived_batch_T(sv))[0]
         lanes = ok.nonzero().squeeze(1).to(I32)
         n = lanes.numel()
         svn = {k: v.expand(v.shape[:-1] + (n,)).contiguous()
                for k, v in sv.items()}
         succ = arrays_to_numpy(self.step_lanes(
-            svn, self.derived_batch_T(svn), lanes))
+            svn, self.derived_batch_T(svn), lanes), self.ir.u32_keys)
         labels = self.lane_labels()
         return [(labels[a], {k: np.ascontiguousarray(v[..., j])
                              for k, v in succ.items()})

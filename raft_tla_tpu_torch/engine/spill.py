@@ -114,7 +114,8 @@ class _SpillLevel:
         self.W = eng.W
         self.one = eng.ir.narrow(eng.lay, rows_to_torch(
             {k: v[None] for k, v in eng.ir.encode(
-                eng.lay, *eng.ir.init_state(eng.cfg)).items()}, dev))
+                eng.lay, *eng.ir.init_state(eng.cfg)).items()}, dev,
+            eng.ir.u32_keys))
         self.set_table(table)
         self.front = {k: torch.zeros(v.shape[:-1] + (eng.SEGF,),
                                      dtype=v.dtype, device=dev)
@@ -400,15 +401,15 @@ class SpillEngine(Engine):
 
     def _materialize_blk(self, blk):
         """Resolve a pending block to host numpy in the reference's
-        layout (rows batch-last in the storage dtypes, bag as uint32;
-        fingerprints uint32), as owned arrays; idempotent."""
+        layout (rows batch-last in the storage dtypes, the u32 word keys
+        as uint32; fingerprints uint32), as owned arrays; idempotent."""
         if blk is None or "_host" not in blk:
             return blk
         host, ev = blk.pop("_host")
         with self._span("d2h"):
             if ev is not None:
                 ev.synchronize()
-            blk["rows"] = {k: _t_to_np(v, k == "bag")
+            blk["rows"] = {k: _t_to_np(v, k in self.ir.u32_keys)
                            for k, v in host["rows"].items()}
             for k in ("lpar", "llane", "linv", "lcon"):
                 blk[k] = _t_to_np(host[k])
@@ -676,7 +677,8 @@ class SpillEngine(Engine):
             arch = None
             if self.store_states or meta[3]:
                 arch = (ring.opar.cpu().numpy(), ring.olane.cpu().numpy(),
-                        storage_to_numpy(ring.ost), ring.oinv.cpu().numpy())
+                        storage_to_numpy(ring.ost, self.ir.u32_keys),
+                        ring.oinv.cpu().numpy())
 
             def archive(li, n_lvl):
                 # an empty level appends nothing: the spill archive's
@@ -706,7 +708,7 @@ class SpillEngine(Engine):
                 if keep.numel():
                     fr_h = storage_to_numpy(
                         {k: v.index_select(-1, keep)
-                         for k, v in ring.fr.items()})
+                         for k, v in ring.fr.items()}, self.ir.u32_keys)
                     g = ring.gd.index_select(0, keep).to(torch.int32)
                     frontier_blocks = [(fr_h, g.cpu().numpy())]
         if verbose:
@@ -764,10 +766,11 @@ class SpillEngine(Engine):
                 self.device)
             st.vis[:, slots.long()] = torch.from_numpy(
                 np.ascontiguousarray(rk.T).view(np.int32)).to(self.device)
-            rows = rows_to_torch(roots, self.device)
+            rows = rows_to_torch(roots, self.device, self.ir.u32_keys)
             inv_r, con_r = self._phase2_T(rows)
             root_blk = dict(
-                rows=storage_to_numpy(self.ir.narrow(lay, rows)),
+                rows=storage_to_numpy(self.ir.narrow(lay, rows),
+                                      self.ir.u32_keys),
                 lpar=np.full((n_roots,), -1, np.int32),
                 llane=np.full((n_roots,), -1, np.int32),
                 linv=inv_r.cpu().numpy(), lcon=con_r.cpu().numpy(),
@@ -1121,7 +1124,8 @@ class SpillEngine(Engine):
         out = []
         for i in range(0, n, 1 << 16):
             b = rows_to_torch({k: v[i:i + (1 << 16)]
-                               for k, v in rows.items()}, self.device)
+                               for k, v in rows.items()}, self.device,
+                              self.ir.u32_keys)
             out.append(words_to_numpy(self.fpr.fingerprint_batch_T(b)).T)
         return (np.concatenate(out) if out
                 else np.zeros((0, self.W), np.uint32))

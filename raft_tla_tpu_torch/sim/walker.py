@@ -219,7 +219,7 @@ class SimEngine:
         # column indices
         self._rootT = rows_to_torch(
             {k: np.asarray(v)[None] for k, v in self._root.items()},
-            self.device)
+            self.device, self.ir.u32_keys)
         self._cols = torch.arange(self.W, device=self.device)
         self._capture = True
         self._graphs = GraphRunner(self.device, False)

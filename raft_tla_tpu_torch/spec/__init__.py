@@ -1,4 +1,4 @@
-"""The spec's operator surface (``SpecIR``), raft only.
+"""The spec's operator surface (``SpecIR``) and the spec registry.
 
 The engine never executes TLA+; it consumes a compiled operator
 surface: an Init state, a packed layout and its codec, a registry of
@@ -6,8 +6,8 @@ action families (each with its parameter grid, its successor kernel,
 its guard algebra and, where the action is affine, its delta algebra),
 per-family density caps, the device predicates with the names they
 answer to, and the symmetry-canonical fingerprinter.  ``SpecIR``
-bundles exactly that, as the reference package's ``spec`` module does;
-this port carries the raft frontend only.
+bundles exactly that, as the reference package's ``spec`` module does,
+for its two tenants: raft (``raft_ir.py``) and paxos (``paxos/``).
 
 The SoA *ctr* contract: every encoded state carries a ``ctr``
 int32[NCTR] lane vector with ``C_GLOBLEN`` (history length) and
@@ -101,6 +101,12 @@ class SpecIR:
     # (kern, lay) -> (svT -> int32 [W]): the random walkers' monotone
     # scenario score, which places their punctuated restart bases
     sim_progress: Optional[Callable] = None
+    # the model config's class, whose defaults are the stock model
+    default_config: Optional[Callable] = None
+    # the state keys that hold u32 bit words: carried as int32 bit
+    # patterns in tensors, stored as uint32 wherever numpy leaves the
+    # port (checkpoint leaves, archives, the JAX package's arrays)
+    u32_keys: Tuple[str, ...] = ()
     # bumped on IR-structure changes (the reference's field)
     version: int = 1
 
@@ -127,22 +133,46 @@ class SpecIR:
         return hashlib.sha256(desc.encode()).hexdigest()[:12]
 
 
-_RAFT = None
+def _build_raft() -> SpecIR:
+    from .raft_ir import build_ir
+    return build_ir()
+
+
+def _build_paxos() -> SpecIR:
+    from .paxos.ir import build_ir
+    return build_ir()
+
+
+_BUILDERS = {"raft": _build_raft, "paxos": _build_paxos}
+_CACHE = {}
+
+# every spec's u32 word keys (each ``build_ir`` sets its
+# ``SpecIR.u32_keys`` from here): the conversions that are given no
+# spec (``convert.py``) take the union, since no key is u32 in one spec
+# and int32 in another
+U32_KEYS = {"raft": ("bag",), "paxos": ("msgs",)}
+ALL_U32_KEYS = frozenset(k for ks in U32_KEYS.values() for k in ks)
+
+
+def spec_names() -> Tuple[str, ...]:
+    return tuple(sorted(_BUILDERS))
 
 
 def spec_of(cfg) -> SpecIR:
-    """The IR handle for a model config."""
+    """The IR handle for a model config (its ``spec`` class attribute;
+    a config without one is raft's)."""
     return get_spec(getattr(cfg, "spec", "raft"))
 
 
 def get_spec(name: str) -> SpecIR:
-    """The IR handle of a spec by name.  Only raft is ported."""
-    global _RAFT
-    if name != "raft":
+    """The IR handle of a spec by name, built on first use; an unknown
+    name fails with the known-spec list, the reference's message."""
+    if name not in _BUILDERS:
         raise ValueError(
-            f"spec {name!r} is not ported to raft_tla_tpu_torch yet; "
-            "known specs: raft")
-    if _RAFT is None:
-        from .raft_ir import build_ir
-        _RAFT = build_ir()
-    return _RAFT
+            f"unknown spec {name!r}; known specs: "
+            f"{', '.join(spec_names())}")
+    ir = _CACHE.get(name)
+    if ir is None:
+        ir = _CACHE[name] = _BUILDERS[name]()
+        assert ir.name == name, (ir.name, name)
+    return ir

@@ -13,8 +13,9 @@ from typing import List
 
 import numpy as np
 
-from ..config import NEXT_ASYNC_CRASH, NEXT_DYNAMIC, NEXT_FULL
-from . import Family, SpecIR
+from ..config import (ModelConfig, NEXT_ASYNC_CRASH, NEXT_DYNAMIC,
+                      NEXT_FULL)
+from . import U32_KEYS, Family, SpecIR
 
 
 def build_families(lay) -> List[Family]:
@@ -330,5 +331,7 @@ def build_ir() -> SpecIR:
         oracle_walk_key=_walk_key,
         prefix_pin_seeds=prefix_pin_seeds,
         sim_progress=sim_progress,
+        default_config=ModelConfig,
+        u32_keys=U32_KEYS["raft"],
         version=1,
     )

@@ -115,3 +115,46 @@ def test_spill_modules_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0, out.stderr
+
+
+def test_paxos_modules_import_without_jax():
+    """The paxos tenant's modules and the modules its slice changed
+    import with JAX and the JAX package blocked, the package walk reaches
+    them, and the registry serves both specs."""
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.spec.paxos." + m for m in (
+            "config", "model", "layout", "oracle", "kernels",
+            "vpredicates", "fingerprint", "ir")] + \
+            ["raft_tla_tpu_torch.spec.paxos"]
+        changed = ["raft_tla_tpu_torch." + m for m in (
+            "cli", "convert", "cfg.parser", "spec", "spec.raft_ir",
+            "engine.bfs", "engine.spill", "engine.expand", "sim.walker")]
+        assert set(new) <= names, sorted(set(new) - names)
+        for n in new + changed:
+            __import__(n)
+        from raft_tla_tpu_torch.spec import get_spec, spec_names
+        assert spec_names() == ("paxos", "raft")
+        ir = get_spec("paxos")
+        assert ir.fingerprint() == "d6d7a456cec9"
+        assert ir.u32_keys == ("msgs",) and get_spec("raft").u32_keys == \
+            ("bag",)
+        assert ir.default_config().spec == "paxos"
+        try:
+            get_spec("tla")
+        except ValueError as e:
+            assert str(e) == "unknown spec 'tla'; known specs: paxos, raft"
+        else:
+            raise AssertionError("an unknown spec was served")
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

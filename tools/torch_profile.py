@@ -1,6 +1,6 @@
 """Where the time goes in the PyTorch/CUDA port's check on one GPU.
 
-    python tools/torch_profile.py [--config 1|5|pinned|sim|spill]
+    python tools/torch_profile.py [--config 1|5|pinned|paxos|sim|spill]
                                   [--max-depth 17] [--walkers 64]
                                   [--steps 32] [--no-action-constraint]
                                   [--incremental-fp 0|1] [--hcap N]
@@ -35,6 +35,12 @@ and builds the kernels).  The pinned search also counts the device
 kernels and time of one eager ``_expand_fp_chunk`` on a full chunk of
 its seed rows, with the mask and without it (one engine each).
 
+``--config paxos`` runs chip_smoke.py phase 15a's paxos model (two
+instances, symmetry off, chunk 4096) to ``--max-depth`` (default 14),
+and also counts the device kernels and time of one eager
+``_expand_fp_chunk`` on a full chunk of the widest level's rows, and
+of its ``derived`` alone (the Phase2a quorum loop's share).
+
 ``--config sim`` profiles the random-walk engine's step instead:
 ``--walkers`` walkers of chip_smoke.py's hit-free config #5 fleet
 (phase 13c) take two steps (the warm-up and the capture), then
@@ -64,16 +70,19 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("1", "5", "pinned", "sim",
-                                         "spill"), default="1")
+    ap.add_argument("--config", choices=("1", "5", "pinned", "paxos",
+                                         "sim", "spill"), default="1")
     ap.add_argument("--max-depth", type=int, default=None,
-                    help="default 17 (19 for --config spill)")
+                    help="default 17 (19 for --config spill, 14 for "
+                         "--config paxos)")
     ap.add_argument("--host-table", action="store_true",
                     help="the host-partitioned table (--config spill)")
     ap.add_argument("--walkers", type=int, default=64,
@@ -102,7 +111,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.max_depth is None:
-        args.max_depth = 19 if args.config == "spill" else 17
+        args.max_depth = {"spill": 19, "paxos": 14}.get(args.config, 17)
     import torch
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA device", file=sys.stderr)
@@ -140,6 +149,11 @@ def main(argv=None):
         if not args.action_constraint:
             cfg = cfg.with_(action_constraints=())
         engine_kw, budget, stop = cs.CONFIG1_ENGINE, 10 ** 9, False
+    elif args.config == "paxos":
+        from raft_tla_tpu_torch.spec.paxos.config import PaxosConfig
+        cfg = PaxosConfig(n_instances=2, symmetry=False)
+        engine_kw = dict(chunk=4096, lcap=1 << 21, vcap=1 << 26)
+        budget = 10 ** 9
     else:
         cfg = load_model(path, bounds=Bounds.make(**cs.CONFIG5_BOUNDS))
         cfg = cfg.with_(**cs.CONFIG5_SHAPE)
@@ -226,6 +240,10 @@ def main(argv=None):
         out["front_half"] = front_half_cost(torch, profile,
                                             ProfilerActivity, Engine, cfg,
                                             engine_kw)
+    if args.config == "paxos":
+        out["front_half"] = paxos_front_half(torch, profile,
+                                             ProfilerActivity, Engine, cfg,
+                                             engine_kw, args.max_depth)
     return _print(out, args)
 
 
@@ -378,24 +396,54 @@ def front_half_cost(torch, profile, ProfilerActivity, Engine, cfg,
         sv = eng.ir.widen({k: v.index_select(-1, idx)
                            for k, v in sv.items()})
         valid = torch.ones(eng.chunk, dtype=torch.bool, device="cuda")
-        eng._expand_fp_chunk(sv, valid, eng.FCAP)          # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            eng._expand_fp_chunk(sv, valid, eng.FCAP)
-            torch.cuda.synchronize()
-        kernels = dev_us = 0
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-            if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-                kernels += e.count
-                dev_us += us
-        out[name] = {"device_kernels": kernels, "device_ms": dev_us / 1e3}
+        out[name] = _device_cost(
+            torch, profile, ProfilerActivity,
+            lambda: eng._expand_fp_chunk(sv, valid, eng.FCAP))
     out["mask_kernels"] = (out["with_mask"]["device_kernels"] -
                            out["without_mask"]["device_kernels"])
     out["mask_device_ms"] = (out["with_mask"]["device_ms"] -
                              out["without_mask"]["device_ms"])
     return out
+
+
+def _device_cost(torch, profile, ProfilerActivity, fn):
+    """(device kernels, device ms) of one call of ``fn`` after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = dev_us = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            kernels += e.count
+            dev_us += us
+    return {"device_kernels": kernels, "device_ms": dev_us / 1e3}
+
+
+def paxos_front_half(torch, profile, ProfilerActivity, Engine, cfg,
+                     engine_kw, depth):
+    """Device kernels and ms of one eager ``_expand_fp_chunk`` on a full
+    chunk of the paxos run's widest level, and of ``derived`` alone."""
+    from raft_tla_tpu_torch.convert import rows_to_torch
+    eng = Engine(cfg, store_states=True, device="cuda", **engine_kw)
+    eng.check(max_depth=depth)
+    last = max(eng._states, key=lambda s: len(s["ctr"]))   # widest level
+    n = len(last["ctr"])
+    idx = np.arange(eng.chunk) % n
+    sv = eng.ir.widen(rows_to_torch({k: v[idx] for k, v in last.items()},
+                                    "cuda", eng.ir.u32_keys))
+    valid = torch.ones(eng.chunk, dtype=torch.bool, device="cuda")
+    return {
+        "rows": eng.chunk, "quorums": len(cfg.quorums),
+        "expand_fp_chunk": _device_cost(
+            torch, profile, ProfilerActivity,
+            lambda: eng._expand_fp_chunk(sv, valid, eng.FCAP)),
+        "derived": _device_cost(torch, profile, ProfilerActivity,
+                                lambda: eng.kern.derived(sv))}
 
 
 if __name__ == "__main__":
