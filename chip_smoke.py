@@ -126,10 +126,27 @@ Phases (any failure exits non-zero before the final line):
      same witness (and simulate the same stats) on the card and on the
      CPU, each replayed step by step by the paxos oracle; (d) the dedup
      kernel against its plain twin at 15a's shapes (its VCAP and fill,
-     M = its FCAP), timed beside its bound.
+     M = its FCAP), timed beside its bound;
+ 16. the observability bundle, through the CLI in this process: (a)
+     config #1 as in phase 4 (``--no-store``) with ``--ledger``,
+     ``--heartbeat``, ``--trace-timeline`` and ``--registry`` must give
+     phase 4's answer, a meta row naming the H100, every dispatch row
+     with every counter and the allocator's device memory, one row per
+     burst and per-level dispatch whose last burst counters are the
+     stats line's, a finished heartbeat, one finished registry record
+     with the stats line's counters, phase 4's level sizes, the
+     ``compile`` (one per graph capture), ``burst_dispatch``,
+     ``level_dispatch`` and ``harvest`` spans, and a timeline that
+     parses; the walls without and with the sinks are printed, timed in
+     turns (none, sinks, sinks, none); (b) ``--profile-dir
+     --trace-timeline`` on config #1 to depth 16: the ``torch.profiler``
+     trace must hold the dedup kernel by name and the span-named
+     ranges; the kernel's events are counted against its launches, and
+     the median device time of those inside graph replays is printed
+     beside fixture (d)'s eager time and bound.
 
-``python3 chip_smoke.py --phase 15`` runs phases 1, 2 and 15 alone and
-prints no result line.
+``python3 chip_smoke.py --phase 15`` (or ``--phase 16``) runs phases 1,
+2 and 15 (or 16) alone and prints no result line.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -1900,12 +1917,232 @@ def paxos_phase(torch, fp, cvt, home_slots, card):
                 wall=time.perf_counter() - t0)
 
 
+CONFIG1_ARGV = ["check", "configs/tlc_membership/raft.cfg",
+                "--max-log-length", "2", "--max-timeouts", "1",
+                "--max-client-requests", "3"] + CAP_FLAGS + \
+    ["--device", "cuda", "--no-store"]
+OBS_SPANS = ("compile", "burst_dispatch", "level_dispatch", "harvest")
+DEDUP_SYMBOL = "probe_claim_rounds"      # csrc/probe_claim.cu's kernel
+
+
+def _sink_argv(d):
+    return ["--ledger", os.path.join(d, "l.jsonl"),
+            "--heartbeat", os.path.join(d, "hb.json"),
+            "--trace-timeline", os.path.join(d, "tl.json"),
+            "--registry", os.path.join(d, "reg")]
+
+
+def _obs_cli(fp, argv):
+    """The port's ``check`` in this process with the dedup launches
+    counted: (wall s, stats line, engine, result, launches)."""
+    from raft_tla_tpu_torch.engine import cuda_ext
+    built = not cuda_ext.loaded()
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    ctr.reset()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(argv)
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    check(rc == 0, f"phase 16 {argv[-8:]}: exit code {rc}: {err[-400:]}")
+    (eng, res), = seen
+    return dict(wall=wall, stats=json.loads(out.partition("\n")[0]),
+                eng=eng, res=res, launches=launches, built=built)
+
+
+def obs_sinks_phase(torch, fp, tmp, card):
+    """Phase 16a: config #1 through the CLI with the four file sinks and
+    without them, in turns (none, sinks, sinks, none): the answer, then
+    the ledger, heartbeat, registry record and timeline checked against
+    the stats line and the engine."""
+    from raft_tla_tpu_torch.obs import BURST_COUNTER_KEYS, CHECK_COUNTER_KEYS
+    argv = CONFIG1_ARGV + ["--max-states", str(CONFIG1_MAX_STATES)]
+    runs = []
+    for i, sinks in enumerate((False, True, True, False)):
+        d = os.path.join(tmp, f"16a_{i}")
+        os.makedirs(d)
+        torch.cuda.synchronize()
+        r = _obs_cli(fp, argv + (_sink_argv(d) if sinks else []))
+        check(r["res"].distinct_states == CONFIG1_DISTINCT and
+              r["res"].depth == CONFIG1_DEPTH and
+              r["res"].level_sizes == CONFIG1_LEVEL_SIZES,
+              f"phase 16a run {i}: {r['res']}")
+        r.update(dir=d, sinks=sinks)
+        runs.append(r)
+    r = runs[1]
+    stats, eng, res, d = r["stats"], r["eng"], r["res"], r["dir"]
+    rows = [json.loads(x) for x in open(os.path.join(d, "l.jsonl"))]
+    check(rows[0]["kind"] == "meta" and
+          "H100" in rows[0]["backend"]["device_kind"] and
+          rows[0]["backend"]["platform"] == "gpu",
+          f"phase 16a meta row {rows[0]}")
+    drows = [x for x in rows if x["kind"] in ("burst", "level")]
+    for x in drows:
+        check(not set(CHECK_COUNTER_KEYS) - set(x),
+              f"phase 16a row lacks {set(CHECK_COUNTER_KEYS) - set(x)}")
+        check(x.get("device_memory", {}).get("peak_bytes_in_use", 0) > 0,
+              f"phase 16a row without device memory: {x}")
+    n_burst = sum(x["kind"] == "burst" for x in drows)
+    n_level = len(drows) - n_burst
+    per_level = res.depth - res.levels_fused
+    check(len(drows) == res.burst_dispatches + per_level and
+          n_level == per_level,
+          f"phase 16a: {n_burst} burst and {n_level} level rows for "
+          f"{res.burst_dispatches} bursts and {per_level} per-level "
+          f"dispatches")
+    for k in BURST_COUNTER_KEYS:
+        check(drows[-1][k] == stats[k],
+              f"phase 16a last row {k} {drows[-1][k]} != {stats[k]}")
+    hb = json.load(open(os.path.join(d, "hb.json")))
+    check(hb["status"] == "finished" and hb["depth"] == stats["depth"] and
+          hb["states_enqueued"] == stats["distinct_states"],
+          f"phase 16a heartbeat {hb}")
+    regd = os.path.join(d, "reg")
+    recs = os.listdir(regd)
+    check(len(recs) == 1, f"phase 16a registry holds {recs}")
+    rec = json.load(open(os.path.join(regd, recs[0])))
+    check(rec["status"] == "finished", f"phase 16a status {rec['status']}")
+    check(all(rec["counters"][k] == v for k, v in stats.items()
+              if k in rec["counters"]),
+          f"phase 16a counters {rec['counters']} vs {stats}")
+    check(rec["level_sizes"] == CONFIG1_LEVEL_SIZES,
+          f"phase 16a registry level sizes {rec['level_sizes']}")
+    spans = rec["spans"]
+    check(set(OBS_SPANS) <= set(spans), f"phase 16a spans {sorted(spans)}")
+    want_compile = eng._graphs.captures + int(r["built"])
+    n_compile = spans.get("compile", {}).get("count", 0)
+    check(n_compile == want_compile,
+          f"phase 16a compile spans {n_compile} != {want_compile} "
+          f"(captures {eng._graphs.captures})")
+    art = rec["artifacts"]
+    check({k: art.get(k) for k in ("ledger", "heartbeat", "timeline")} ==
+          {"ledger": os.path.join(d, "l.jsonl"),
+           "heartbeat": os.path.join(d, "hb.json"),
+           "timeline": os.path.join(d, "tl.json")},
+          f"phase 16a artifacts {art}")
+    tl = json.load(open(art["timeline"]))
+    check({e["name"] for e in tl} == set(spans),
+          "phase 16a timeline spans differ from the record's")
+    walls = [x["wall"] for x in runs]
+    engine_s = [x["res"].seconds for x in runs]
+    log(f"phase 16a config #1 with --ledger/--heartbeat/--trace-timeline/"
+        f"--registry [{card}]: {stats['distinct_states']} states, depth "
+        f"{stats['depth']}, phase 4's level sizes; {len(rows)} ledger rows "
+        f"({n_burst} burst, {n_level} level, the meta row and "
+        f"{len(rows) - len(drows) - 1} resource rows); heartbeat finished; "
+        f"one registry record, counters == the stats line; spans "
+        + ", ".join(f"{k} {v['count']} / {v['seconds']:.3f} s"
+                    for k, v in sorted(spans.items()))
+        + f"; graphs captured {eng._graphs.captures}; device peak "
+        f"{rec['resources'].get('device_peak_bytes_in_use')} B "
+        f"(the allocator's)")
+    log(f"phase 16a walls in turns [{card}]: none {walls[0]:.3f} s, sinks "
+        f"{walls[1]:.3f} s, sinks {walls[2]:.3f} s, none {walls[3]:.3f} s "
+        f"(engine seconds {', '.join(f'{x:.3f}' for x in engine_s)}); "
+        f"dedup launches {r['launches']}")
+    return dict(walls_none_sinks_sinks_none_s=walls,
+                engine_s=engine_s, launches=r["launches"],
+                rows=len(rows), burst_rows=n_burst, level_rows=n_level,
+                captures=eng._graphs.captures,
+                spans={k: v for k, v in sorted(spans.items())},
+                device_peak_bytes=rec["resources"].get(
+                    "device_peak_bytes_in_use"))
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def obs_profile_phase(torch, fp, tmp, card, eager_ms, bound_ms):
+    """Phase 16b: ``check --profile-dir --trace-timeline`` on config #1
+    to depth 16: the torch.profiler trace holds the dedup kernel by name
+    and the span-named record_function ranges; the kernel's device time
+    inside graph replays is read from it."""
+    prof = os.path.join(tmp, "16b_prof")
+    tl = os.path.join(tmp, "16b_tl.json")
+    argv = CONFIG1_ARGV + ["--max-depth", "16", "--profile-dir", prof,
+                           "--trace-timeline", tl]
+    torch.cuda.synchronize()
+    r = _obs_cli(fp, argv)
+    res, eng = r["res"], r["eng"]
+    check(res.level_sizes == CONFIG1_LEVEL_SIZES[:16] and res.depth == 16,
+          f"phase 16b: {res}")
+    files = os.listdir(prof)
+    check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+          f"phase 16b profile dir holds {files}")
+    path = os.path.join(prof, files[0])
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    events = json.load(open(path))["traceEvents"]
+    parse_s = time.perf_counter() - t0
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    check({"level_dispatch", "harvest", "compile"} <= ranges,
+          f"phase 16b record_function ranges {sorted(ranges)}")
+    runtime = {e.get("args", {}).get("correlation"): e.get("name", "")
+               for e in events if e.get("cat") == "cuda_runtime"}
+    kern = [e for e in events if e.get("cat") == "kernel" and
+            DEDUP_SYMBOL in e.get("name", "")]
+    check(kern, f"phase 16b: no {DEDUP_SYMBOL} kernel in the trace")
+    # a kernel of a graph replay correlates with the replay's
+    # cudaGraphLaunch (CUPTI names the graph node too); an eager one
+    # with its own launch call
+    in_graph, eager = [], []
+    for e in kern:
+        args = e.get("args", {})
+        launch = runtime.get(args.get("correlation"), "")
+        (in_graph if launch.startswith("cudaGraphLaunch") or
+         args.get("graph node id") else eager).append(e)
+    launch_calls = sorted({runtime.get(e.get("args", {}).get(
+        "correlation"), "?") for e in kern})
+    graph_ms = _median([e["dur"] / 1e3 for e in in_graph])
+    eager_trace_ms = _median([e["dur"] / 1e3 for e in eager])
+    log(f"phase 16b config #1 to depth 16 with --profile-dir [{card}]: "
+        f"{res.distinct_states} states, phase 4's first 16 level sizes; "
+        f"wall {r['wall']:.2f} s (engine {res.seconds:.2f} s); trace "
+        f"{nbytes} B, {len(events)} events, parsed in {parse_s:.2f} s; "
+        f"ranges {sorted(ranges & set(OBS_SPANS + ('archive_io',)))}")
+    log(f"phase 16b dedup kernel [{card}]: {len(kern)} "
+        f"{DEDUP_SYMBOL} events in the trace against the engine's "
+        f"{r['launches']} launches ({eng._graphs.replays} replays of "
+        f"{eng._graphs.captures} graphs), launched by {launch_calls}; "
+        f"{len(eager)} eager (the warm-ups), median {eager_trace_ms} ms; "
+        f"{len(in_graph)} inside "
+        f"graph replays"
+        + (f", median {graph_ms:.4f} ms" if in_graph else
+           ": the trace shows no kernel of a graph replay")
+        + f"; fixture (d) eager {eager_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms")
+    return dict(wall=r["wall"], engine_s=res.seconds, trace_bytes=nbytes,
+                events=len(events), parse_s=parse_s,
+                kernel_events=len(kern), launches=r["launches"],
+                in_graph_events=len(in_graph), in_graph_ms=graph_ms,
+                eager_events=len(eager), eager_trace_ms=eager_trace_ms,
+                replays=eng._graphs.replays, captures=eng._graphs.captures)
+
+
+def obs_phase(torch, fp, card, eager_ms, bound_ms):
+    """Phase 16: the observability bundle on the classic engine."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        a = obs_sinks_phase(torch, fp, tmp, card)
+        b = obs_profile_phase(torch, fp, tmp, card, eager_ms, bound_ms)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 16 [{card}]: {wall:.1f} s")
+    return dict(sinks=a, profile=b, wall=wall)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--phase", "15"]):
-        print("usage: python3 chip_smoke.py [--phase 15]", file=sys.stderr)
+    if argv not in ([], ["--phase", "15"], ["--phase", "16"]):
+        print("usage: python3 chip_smoke.py [--phase 15|16]",
+              file=sys.stderr)
         return 2
-    only_paxos = bool(argv)
+    only = argv[1] if argv else None
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1935,14 +2172,21 @@ def main(argv=None):
     cuda_ext.build(verbose=True)            # prints ptxas's resource use
     cuda_ext.library()
     log(f"phase 2 build and load: {time.perf_counter() - t0:.1f} s")
-    if only_paxos:
-        # phases 1, 2 and 15 alone: no result line
-        t15 = paxos_phase(torch, fp, cvt, home_slots, card)
+    if only:
+        # phases 1, 2 and 15 or 16 alone: no result line
+        if only == "15":
+            got = {"paxos": paxos_phase(torch, fp, cvt, home_slots, card)}
+        else:
+            # fixture (d) gives the kernel's eager time and bound
+            d = kernel_phase(torch, fp, cvt, home_slots, card,
+                             fixtures="d")
+            got = {"obs": obs_phase(torch, fp, card, d["ms"],
+                                    d["bound_ms"])}
         check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                       for m in sys.modules),
               "JAX or its package was imported")
-        log(json.dumps({"paxos": t15}))
-        log(f"chip_smoke --phase 15: passed in "
+        log(json.dumps(got))
+        log(f"chip_smoke --phase {only}: passed in "
             f"{time.perf_counter() - t_start:.1f} s (no result line)")
         return 0
     # phase 3, with 64-bit keys and then with fp128's 4-word keys
@@ -2071,6 +2315,8 @@ def main(argv=None):
         shutil.rmtree(tmp, ignore_errors=True)
     # phase 15: the paxos tenant
     t15 = paxos_phase(torch, fp, cvt, home_slots, card)
+    # phase 16: the observability bundle, the profiler's view
+    t16 = obs_phase(torch, fp, card, meas["ms"], meas["bound_ms"])
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -2121,7 +2367,16 @@ def main(argv=None):
         "paxos_shape_plain_ms": t15["kernel"]["plain_ms"],
         "paxos_shape_bound_ms": t15["kernel"]["bound_ms"],
         "paxos_shape_rounds": t15["kernel"]["rounds"],
-        "paxos_shape_of": "phase 15d: 15a's VCAP and fill, M = its FCAP"}],
+        "paxos_shape_of": "phase 15d: 15a's VCAP and fill, M = its FCAP",
+        "obs_sinks_launches": t16["sinks"]["launches"],
+        "obs_profiled_launches": t16["profile"]["launches"],
+        "obs_profiled_kernel_events": t16["profile"]["kernel_events"],
+        "in_graph_launches": t16["profile"]["in_graph_events"],
+        "in_graph_ms": t16["profile"]["in_graph_ms"],
+        "in_graph_of": "phase 16b: config #1 to depth 16 under "
+                       "torch.profiler, median device time of the kernel "
+                       "events of graph replays"}],
+        "obs": t16,
         "paxos": t15,
         "spill": {"config2_depth20": t14, "host_table_depth19": t14b},
         "sim": {

@@ -43,8 +43,13 @@ injects faults to test exactly that).  ``check --spill`` runs the
 host-spill engine (``--seg``; ``--host-table --partitions P --part-cap
 N --sweep-stage`` for the host-partitioned visited table), and
 ``--resume F --resume-portable`` resumes any engine family's
-checkpoint on it (``resil/portable.py``).  The stats line has the
-reference CLI's keys, in its order.
+checkpoint on it (``resil/portable.py``).  ``check --ledger F
+--heartbeat F --trace-timeline F --profile-dir D --registry D`` write
+the reference's run ledger, heartbeat, span timeline and registry
+record, and a ``torch.profiler`` trace (``obs/``); the spill engine and
+``simulate`` refuse those flags (their hooks are not ported yet).  The
+stats line has the reference CLI's keys, in its order
+(``obs/metrics.py`` ``check_stats``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import time
 
 from .cfg.parser import load_model
 from .config import Bounds
+from .obs.metrics import check_stats, sim_stats
 
 
 def _apply_overrides(cfg, args, ir):
@@ -205,96 +211,71 @@ def _load_cfg(args):
     return ir, _apply_overrides(load_model(args.cfg, bounds=None), args, ir)
 
 
-# the run's program (``Engine._stamp_mode``), after the burst keys
-MODE_KEYS = ("guard_matmul", "dedup_kernel", "delta_matmul", "sym_canon")
+_OBS_ARGS = ("ledger", "heartbeat", "trace_timeline", "profile_dir",
+             "registry")
 
 
-def check_stats(counters: dict, seconds: float, n_violations: int,
-                fp_bits=None, ir_fp=None, spec: str = "raft") -> dict:
-    """The ``check`` stats payload, with the reference's key names and
-    order (``obs/metrics.py`` ``check_stats``): ``pin_interior_states``
-    only when nonzero, the fingerprint, burst and mode keys only for the
-    engine (``fp_bits`` given), the run's spec name and its IR
-    fingerprint (``ir_fp``) last."""
-    distinct = int(counters["distinct_states"])
-    gen = int(counters["generated_states"])
-    out = {
-        "distinct_states": distinct,
-        "generated_states": gen,
-        "depth": int(counters["depth"]),
-        "seconds": round(float(seconds), 3),
-        "states_per_sec": round(distinct / max(seconds, 1e-9), 1),
-        "dedup_hit_rate": round(1.0 - distinct / max(gen, 1), 4),
-        "violations": int(n_violations),
-    }
-    if int(counters.get("pin_interior_states", 0) or 0):
-        out["pin_interior_states"] = int(counters["pin_interior_states"])
-    if fp_bits is not None:
-        out["fp_bits"] = int(fp_bits)
-        out["expected_fp_collisions"] = float(
-            distinct * distinct / 2.0 ** (fp_bits + 1))
-        for k in ("levels_fused", "burst_dispatches",
-                  "burst_bailouts") + MODE_KEYS:
-            out[k] = int(counters[k])
-    out["spec"] = spec
-    if ir_fp is not None:
-        out["ir_fingerprint"] = ir_fp
-    return out
+def _obs_flags_set(args) -> bool:
+    """Flag presence without constructing the bundle (building it
+    opens the ledger and timeline files)."""
+    return any(getattr(args, nm, None) for nm in _OBS_ARGS)
 
 
-def sim_counters(res) -> dict:
-    """A SimResult's counters, in the reference's order."""
-    return {
-        "walkers": int(res.walkers),
-        "steps_dispatched": int(res.steps_dispatched),
-        "walker_steps": int(res.walker_steps),
-        "sampled_steps": int(res.sampled_steps),
-        "restarts": int(res.restarts),
-        "deadlocks": int(res.deadlocks),
-        "promotions": int(res.promotions),
-        "hits": len(res.hits),
-        "est_distinct_states": round(float(res.est_distinct_states), 1),
-        "bloom_saturated": bool(res.bloom_saturated),
-        "bloom_canonical": bool(res.bloom_canonical),
-    }
+def _obs_flag_names(args) -> str:
+    return ", ".join("--" + nm.replace("_", "-") for nm in _OBS_ARGS
+                     if getattr(args, nm, None))
 
 
-def sim_stats(res, target: str, policy: str, seed: int,
-              platform: str) -> dict:
-    """The ``simulate`` stats payload, with the reference's keys in the
-    reference's order."""
-    c = sim_counters(res)
-    return {
-        "target": target,
-        "policy": policy,
-        "walkers": c["walkers"],
-        "steps_dispatched": c["steps_dispatched"],
-        "walker_steps": c["walker_steps"],
-        "sampled_steps": c["sampled_steps"],
-        "walker_steps_per_sec": round(res.walker_steps_per_sec, 1),
-        "restarts": c["restarts"],
-        "deadlocks": c["deadlocks"],
-        "promotions": c["promotions"],
-        "seconds": round(float(res.seconds), 3),
-        "est_distinct_states": c["est_distinct_states"],
-        "bloom_saturated": c["bloom_saturated"],
-        "bloom_canonical": c["bloom_canonical"],
-        "hits": c["hits"],
-        "platform": platform,
-        "seed": seed,
-    }
+def _build_obs(args, ir, cfg):
+    """The observability bundle ``check``'s flags describe (NULL_OBS
+    when none is set): the spec name and IR fingerprint stamp every
+    ledger record, the command and the cfg ride the meta row and the
+    registry record, and the bundle describes the run's device
+    (``--device``)."""
+    from .obs import NULL_OBS, from_flags
+    from .utils import resolve_device
+    if not _obs_flags_set(args):
+        return NULL_OBS
+    return from_flags(ledger=args.ledger, heartbeat=args.heartbeat,
+                      timeline=args.trace_timeline,
+                      profile_dir=args.profile_dir, registry=args.registry,
+                      meta={"spec": ir.name,
+                            "ir_fingerprint": ir.fingerprint()},
+                      run_info={"cmd": "check", "cfg": repr(cfg)},
+                      device=str(resolve_device(args.device)))
 
 
-def _engine_counters(res) -> dict:
-    """A CheckResult's counters for ``check_stats`` (the mode keys as
-    ``Engine._stamp_mode`` stamped them)."""
-    return dict(distinct_states=res.distinct_states,
-                generated_states=res.generated_states, depth=res.depth,
-                pin_interior_states=res.pin_interior_states,
-                levels_fused=res.levels_fused,
-                burst_dispatches=res.burst_dispatches,
-                burst_bailouts=res.burst_bailouts,
-                **{k: getattr(res, k) for k in MODE_KEYS})
+def _add_obs_flags(sp):
+    """--ledger/--heartbeat/--trace-timeline/--profile-dir/--registry,
+    on check and simulate as in the reference CLI."""
+    sp.add_argument("--ledger", default=None, metavar="FILE",
+                    help="append one JSONL record per dispatch (depth, "
+                         "frontier, registry counters, states/sec, "
+                         "RSS, device memory) — flushed per record, so "
+                         "a killed run keeps its telemetry; tail with "
+                         "tools/watch.py")
+    sp.add_argument("--heartbeat", default=None, metavar="FILE",
+                    help="atomically rewrite a small JSON (pid, depth, "
+                         "last-dispatch timestamp, states enqueued) "
+                         "every dispatch so an external watchdog can "
+                         "distinguish a slow level from a dead process")
+    sp.add_argument("--trace-timeline", default=None, metavar="FILE",
+                    help="write the host span timeline (compile / "
+                         "burst_dispatch / level_dispatch / harvest / "
+                         "archive_io / checkpoint) as Chrome-trace "
+                         "JSON — load it in Perfetto "
+                         "(https://ui.perfetto.dev)")
+    sp.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace (CPU, and CUDA "
+                         "kernels on the card) into DIR as one Chrome "
+                         "trace file named by the run id; span names "
+                         "ride along as record_function ranges so the "
+                         "device trace lines up with --trace-timeline")
+    sp.add_argument("--registry", default=None, metavar="DIR",
+                    help="append one atomic schema-versioned run "
+                         "record (counters, span rollups, resource "
+                         "peaks, backend fingerprint, exit status, "
+                         "artifact paths) under DIR at run end")
 
 
 def _engine(cfg, args, store_states):
@@ -464,6 +445,12 @@ def cmd_check(args) -> int:
               "package: run on one device, or use --spill",
               file=sys.stderr)
         return 2
+    if args.spill and args.engine != "oracle" and _obs_flags_set(args):
+        print(f"{_obs_flag_names(args)} with --spill: the spill engine's "
+              "observability hooks are not ported to this package yet; "
+              "run without --spill, or without the flag",
+              file=sys.stderr)
+        return 2
     err = _check_retry_flags(args) or _install_chaos(args)
     if err:
         print(err, file=sys.stderr)
@@ -498,6 +485,12 @@ def _check(args, ir, cfg) -> int:
         else:
             engine_seeds = _engine_seed_arrays(cfg, ir, raw)
     if args.engine == "oracle":
+        if _obs_flags_set(args):
+            # the oracle has no dispatches to ledger or heartbeat: say
+            # so, and do not build the bundle (that would touch the files)
+            print("--ledger/--heartbeat/--trace-timeline/--profile-dir"
+                  "/--registry instrument the tpu engines; ignored "
+                  "for --engine oracle", file=sys.stderr)
         t0 = time.perf_counter()
         r = ir.oracle_explore(cfg, max_depth=args.max_depth,
                               max_states=args.max_states,
@@ -533,6 +526,9 @@ def _check(args, ir, cfg) -> int:
             eng = _engine(cfg, args, store_states=not args.no_store)
             eng.ckpt_keep = args.ckpt_keep
             return eng
+        obs = _build_obs(args, ir, cfg)
+        obs.start()
+        done = False
         try:
             resume_image = None
             if args.resume_portable:
@@ -540,13 +536,15 @@ def _check(args, ir, cfg) -> int:
                 resume_image = load_portable_image(args.resume)
             r, eng, _attempts = supervised_check(
                 make_engine, retries=args.retries, backoff=args.backoff,
-                checkpoint_path=args.checkpoint,
+                obs=obs, checkpoint_path=args.checkpoint,
                 resume_from=(None if args.resume_portable
                              else args.resume),
-                resume_image=resume_image, max_depth=args.max_depth, max_states=args.max_states,
+                resume_image=resume_image, max_depth=args.max_depth,
+                max_states=args.max_states,
                 stop_on_violation=not args.keep_going,
                 verbose=args.verbose, seed_states=engine_seeds,
                 checkpoint_every=args.checkpoint_every)
+            done = True
         except (CheckpointError, FileNotFoundError) as e:
             # only checkpoint load/format problems — a mid-run error
             # after a successful resume propagates with its real trace
@@ -558,6 +556,16 @@ def _check(args, ir, cfg) -> int:
         except RetryExhausted as e:
             print(str(e), file=sys.stderr)
             return 3
+        finally:
+            # the final heartbeat carries the run's reported depth (a
+            # watchdog sees "finished" with the stats line's depth)
+            if done:
+                obs.finish(depth=int(r.depth),
+                           states=int(r.distinct_states),
+                           counters=r.metrics.as_dict(),
+                           level_sizes=list(r.level_sizes))
+            else:
+                obs.finish(status="failed")
         viol = []
         for v in r.violations[:args.max_violations]:
             if v.state_id < 0:
@@ -579,7 +587,7 @@ def _check(args, ir, cfg) -> int:
             print(f"FAULT: {r.overflow_faults} un-representable states "
                   f"(bounds too small for the disabled-constraint space)",
                   file=sys.stderr)
-        out = check_stats(_engine_counters(r), r.seconds, len(viol),
+        out = check_stats(r.metrics.as_dict(), r.seconds, len(viol),
                           fp_bits=128 if args.fp128 else 64,
                           ir_fp=ir.fingerprint(), spec=ir.name)
     print(json.dumps(out))
@@ -651,7 +659,7 @@ def cmd_trace(args) -> int:
         _write_seed(args.emit_seed, _seed_obj(ir, sv, h, arrs))
     if args.stats_json:
         with open(args.stats_json, "w") as fh:
-            json.dump(check_stats(_engine_counters(r), r.seconds,
+            json.dump(check_stats(r.metrics.as_dict(), r.seconds,
                                   len(r.violations),
                                   fp_bits=128 if args.fp128 else 64,
                                   ir_fp=ir.fingerprint(), spec=ir.name),
@@ -671,6 +679,11 @@ def cmd_simulate(args) -> int:
             print(f"{nm} must be positive (got {val})",
                   file=sys.stderr)
             return 2
+    if _obs_flags_set(args):
+        print(f"{_obs_flag_names(args)} on simulate: the random-walk "
+              "engine's observability hooks are not ported to this "
+              "package yet; run without the flag", file=sys.stderr)
+        return 2
     ir, cfg = _load_cfg(args)
     if not _check_target(args.target, ir):
         return 2
@@ -938,6 +951,7 @@ def main(argv=None) -> int:
     pc.add_argument("--action-constraint", dest="action_constraints",
                     action="append", default=None, metavar="NAME",
                     help="enable an extra ACTION_CONSTRAINT (repeatable)")
+    _add_obs_flags(pc)
     pt = sub.add_parser("trace", help="witness trace for a scenario")
     common(pt)
     pt.add_argument("--target", required=True, help=target_help)
@@ -985,6 +999,7 @@ def main(argv=None) -> int:
                     help="write the witness end state as a seed for "
                          "`check --seed-trace` (simulation feeds "
                          "punctuated exhaustive search)")
+    _add_obs_flags(ps)
     args = ap.parse_args(argv)
     return {"check": cmd_check, "trace": cmd_trace,
             "simulate": cmd_simulate}[args.cmd](args)

@@ -69,6 +69,8 @@ import torch
 from ..config import ModelConfig
 from ..convert import (rows_to_torch, storage_rows_to_numpy,
                        storage_to_numpy, words_to_numpy, words_to_torch)
+from ..obs import NULL_OBS
+from ..obs.metrics import CHECK_COUNTER_KEYS, MetricsRegistry
 from ..ops.codec import C_OVERFLOW
 from ..resil.chaos import chaos_point
 from ..spec import spec_of
@@ -101,33 +103,58 @@ class Violation:
 
 
 class CheckResult:
-    """A run's counters (the reference's ``CheckResult`` names)."""
+    """A run's result, whose scalar counters live in one
+    ``obs.metrics.MetricsRegistry`` (``self.metrics``, over exactly the
+    reference's ``CHECK_COUNTER_KEYS``); the named attributes below are
+    write-through views, so a harvest loop mutating ``res.levels_fused`` is
+    updating the registry — the ledger, ``--stats-json`` and checkpoint
+    meta all read the same store (the reference's form).
 
-    def __init__(self, distinct_states: int = 0, generated_states: int = 0,
-                 depth: int = 0):
-        self.distinct_states = distinct_states
-        self.generated_states = generated_states
-        self.depth = depth
-        self.overflow_faults = 0
-        self.violations_global = 0
-        self.violations: List[Violation] = []
-        self.level_sizes: List[int] = []
-        self.seconds = 0.0
-        # the fused path: levels committed inside bursts, burst
-        # dispatches, and dispatches that ended in a bail
-        self.levels_fused = self.burst_dispatches = self.burst_bailouts = 0
-        # the program this run executed (``Engine._stamp_mode``):
-        # the guard product, the hand dedup kernel, the delta group, and
-        # 1 = orbit-sort canonical fingerprints, 0 = min-over-perms (the
-        # resolved mode, as the reference reports it)
-        self.guard_matmul = self.dedup_kernel = self.delta_matmul = 0
-        self.sym_canon = 0
-        # sort mode: hard lanes that took the min-over-perms fallback,
-        # the chunks that had any, and the most in one chunk
+    - ``violations_global`` — total violations found;
+    - ``levels_fused`` / ``burst_dispatches`` / ``burst_bailouts`` —
+      levels committed inside bursts, burst dispatches, and dispatches
+      that ended in a bail (a dispatch can both commit levels and bail);
+    - ``guard_matmul`` / ``dedup_kernel`` / ``delta_matmul`` /
+      ``sym_canon`` — the program this run executed
+      (``Engine._stamp_mode``);
+    - ``pin_interior_states`` — distinct pinned-prefix interior states
+      invariant-checked but not counted (TLC counts them;
+      models/golden docstring).
+
+    The port's sort-mode counters ``hard_lanes``, ``hard_chunks`` and
+    ``hard_chunk_max`` (hard lanes that took the min-over-perms
+    fallback, the chunks that had any, the most in one chunk) are plain
+    attributes outside the registry, so its key set is the reference's.
+    """
+
+    _COUNTERS = CHECK_COUNTER_KEYS
+
+    def __init__(self, distinct_states: int = 0,
+                 generated_states: int = 0, depth: int = 0,
+                 violations: Optional[List[Violation]] = None,
+                 level_sizes: Optional[List[int]] = None,
+                 seconds: float = 0.0, overflow_faults: int = 0,
+                 phase_seconds: Optional[Dict[str, float]] = None,
+                 violations_global: int = 0, levels_fused: int = 0,
+                 burst_dispatches: int = 0, burst_bailouts: int = 0,
+                 pin_interior_states: int = 0, guard_matmul: int = 0,
+                 dedup_kernel: int = 0, delta_matmul: int = 0,
+                 sym_canon: int = 0):
+        init = locals()
+        self.metrics = MetricsRegistry()
+        for nm in self._COUNTERS:
+            self.metrics.register(nm, int(init[nm]))
+        self.violations: List[Violation] = list(violations or [])
+        self.level_sizes: List[int] = list(level_sizes or [])
+        self.seconds = float(seconds)
+        self.phase_seconds: Dict[str, float] = dict(phase_seconds or {})
         self.hard_lanes = self.hard_chunks = self.hard_chunk_max = 0
-        # distinct pinned-prefix interior states invariant-checked but
-        # not counted (TLC counts them; models/golden docstring)
-        self.pin_interior_states = 0
+
+    def __repr__(self):
+        body = ", ".join(f"{k}={v}"
+                         for k, v in self.metrics.as_dict().items())
+        return (f"CheckResult({body}, seconds={self.seconds:.3f}, "
+                f"violations={len(self.violations)})")
 
     @property
     def states_per_sec(self):
@@ -138,11 +165,14 @@ class CheckResult:
         """Fraction of generated successors that were duplicates."""
         return 1.0 - self.distinct_states / max(self.generated_states, 1)
 
-    def __repr__(self):
-        return (f"CheckResult(distinct_states={self.distinct_states}, "
-                f"generated_states={self.generated_states}, "
-                f"depth={self.depth}, seconds={self.seconds:.3f}, "
-                f"violations={len(self.violations)})")
+
+def _metric_view(nm: str) -> property:
+    return property(lambda self: self.metrics.get(nm),
+                    lambda self, v: self.metrics.set(nm, int(v)))
+
+
+for _nm in CheckResult._COUNTERS:
+    setattr(CheckResult, _nm, _metric_view(_nm))
 
 
 def _ceil_log2(n: int) -> int:
@@ -333,6 +363,9 @@ class Engine:
     _LOAD_MAX = 0.40
     _BURST_LEVELS = 16
     _BURST_CHUNKS = 4           # the burst ring's width, in chunks
+    # the observability bundle of the run under way (``check(obs=)``);
+    # every hook of NULL_OBS is a no-op
+    _obs = NULL_OBS
 
     def __init__(self, cfg: ModelConfig, chunk: int = 512,
                  store_states: bool = True,
@@ -981,12 +1014,13 @@ class Engine:
     def _archive_level(self, parents: np.ndarray, lanes: np.ndarray,
                        states: Dict[str, np.ndarray]):
         """One level's batch-major rows, in the storage dtypes."""
-        if self._arch is not None:
-            self._arch.append_level(parents, lanes, states)
-        else:
-            self._parents.append(parents)
-            self._lanes.append(lanes)
-            self._states.append(states)
+        with self._obs.span("archive_io"):
+            if self._arch is not None:
+                self._arch.append_level(parents, lanes, states)
+            else:
+                self._parents.append(parents)
+                self._lanes.append(lanes)
+                self._states.append(states)
 
     def _ckpt_store_args(self):
         """(parents, lanes, states, extra-meta) for ckpt_write: a disk
@@ -1144,21 +1178,23 @@ class Engine:
         """Read the level state back (at the level boundary, after the
         level's one read) and write it with the reference's meta; the
         port's HCAP and hard-lane counters ride as extra keys."""
-        parents, lanes, states, arch_meta = self._ckpt_store_args()
-        h = self.hard_stats
-        ckpt_write(path, self._carry_numpy(st), self.store_states, parents,
-                   lanes, states, res, dict(
-                       depth=depth, n_states=n_states, n_vis=n_vis,
-                       n_front=n_front, LCAP=self.LCAP, VCAP=self.VCAP,
-                       FCAP=self.FCAP, OCAP=self.OCAP,
-                       fam_caps=list(self.FAM_CAPS), **arch_meta,
-                       layout=2, chunk=self.chunk, spec=self.ir.name,
-                       sym_canon=self.fpr.sym_canon,
-                       ir_fingerprint=self.ir.fingerprint(),
-                       cfg=repr(self.cfg), HCAP=self.HCAP,
-                       hard_lanes=h[0], hard_chunks=h[1],
-                       hard_chunk_max=h[2], hcovf=bool(st.hcovf)),
-                   keep=self.ckpt_keep)
+        with self._obs.span("checkpoint"):
+            parents, lanes, states, arch_meta = self._ckpt_store_args()
+            h = self.hard_stats
+            ckpt_write(path, self._carry_numpy(st), self.store_states,
+                       parents, lanes, states, res, dict(
+                           depth=depth, n_states=n_states, n_vis=n_vis,
+                           n_front=n_front, LCAP=self.LCAP,
+                           VCAP=self.VCAP, FCAP=self.FCAP,
+                           OCAP=self.OCAP,
+                           fam_caps=list(self.FAM_CAPS), **arch_meta,
+                           layout=2, chunk=self.chunk, spec=self.ir.name,
+                           sym_canon=self.fpr.sym_canon,
+                           ir_fingerprint=self.ir.fingerprint(),
+                           cfg=repr(self.cfg), HCAP=self.HCAP,
+                           hard_lanes=h[0], hard_chunks=h[1],
+                           hard_chunk_max=h[2], hcovf=bool(st.hcovf)),
+                       keep=self.ckpt_keep)
 
     def _load_checkpoint(self, path):
         """(level state, result so far, meta) from a checkpoint of this
@@ -1327,14 +1363,31 @@ class Engine:
         counts are those of an uninterrupted run; levels are never
         half-resumed).  resume_image — a ``resil.portable.PortableImage``
         of any engine family's checkpoint: its key set seeds the table
-        and its gid-ordered frontier becomes the level state's.  ``obs``
-        is accepted, as the reference's is, and not used: this package
-        has no observability bundle yet."""
+        and its gid-ordered frontier becomes the level state's.
+
+        obs — an ``obs.Obs`` bundle (spans, JSONL ledger, heartbeat,
+        profiler); every dispatch writes one ledger record and one
+        heartbeat rewrite, so a killed run keeps its telemetry.  The
+        spans sit at the reference's sites, on the host, never inside a
+        captured program: ``compile`` (each graph's warm-up and capture,
+        and the kernels' first-use build), ``burst_dispatch``,
+        ``level_dispatch``, ``harvest``, ``archive_io``,
+        ``checkpoint``."""
+        obs = self._obs = obs if obs is not None else NULL_OBS
         t0 = time.perf_counter()
+        t_dev = 0.0
         if resume_from is not None and resume_image is not None:
             raise ValueError(
                 "resume_from and resume_image are mutually exclusive")
-        self._graphs = GraphRunner(self.device, self._capture)
+        if self.device.type == "cuda":
+            from . import cuda_ext
+            if not cuda_ext.loaded():
+                # the kernels' first use in this process builds (or
+                # loads) the library: a compile, as the reference's
+                # warm-up is
+                with obs.span("compile"):
+                    cuda_ext.library()
+        self._graphs = GraphRunner(self.device, self._capture, obs=obs)
         ring = None
         resumed = resume_from is not None or resume_image is not None
         if resume_from is not None:
@@ -1444,25 +1497,31 @@ class Engine:
             if self.burst and burst_ok and \
                     n_front <= self._burst_width():
                 t1 = time.perf_counter()
-                grow_table_if_needed(
-                    st, min_add=self.burst_levels * self._burst_width())
-                if ring is None:
-                    ring = _Ring(self, st)
-                meta, stats = self._burst(
-                    st, ring, min(self.burst_levels, max_depth - depth),
-                    max(1, min(max_states - res.distinct_states,
-                               2 ** 31 - 1)))
+                with obs.span("burst_dispatch"):
+                    grow_table_if_needed(
+                        st, min_add=self.burst_levels * self._burst_width())
+                    if ring is None:
+                        ring = _Ring(self, st)
+                    meta, stats = self._burst(
+                        st, ring, min(self.burst_levels, max_depth - depth),
+                        max(1, min(max_states - res.distinct_states,
+                                   2 ** 31 - 1)))
                 res.burst_dispatches += 1
                 res.burst_bailouts += meta[1]
                 if meta[0]:
                     burst_ok = not meta[1]
                     n_front = meta[2]
                     d0 = depth
-                    harvest_burst(meta, stats, ring)
+                    with obs.span("harvest"):
+                        harvest_burst(meta, stats, ring)
+                    t_dev += time.perf_counter() - t1
                     if checkpoint_path is not None and \
                             driver.ckpt_due_after_burst(
                                 depth, d0, checkpoint_every):
                         save(st)
+                    obs.dispatch(kind="burst", depth=depth,
+                                 frontier=n_front,
+                                 metrics=res.metrics.as_dict())
                     if verbose:
                         print(f"burst: {meta[0]} levels to depth {depth} "
                               f"(total {res.distinct_states}), frontier "
@@ -1472,52 +1531,57 @@ class Engine:
             burst_ok = True
             depth += 1
             t1 = time.perf_counter()
-            grow_table_if_needed(st)
-            while True:
-                n_chunks = (n_front + self.chunk - 1) // self.chunk
-                key = self._graph_key("step", st)
-                for _ in range(n_chunks):
-                    self._graphs.run(key, lambda: self._chunk_step(st))
-                scal, inv_ok = self._finalize(st)
-                ovf, fovf, hovf, oovf = (bool(scal[4]), bool(scal[5]),
-                                         bool(scal[8]), bool(scal[9]))
-                hcovf = bool(scal[-2])
-                if not (ovf or fovf or hovf or oovf or hcovf):
-                    break
-                # overflow: the table was rolled back and the frontier
-                # kept, so grow and replay the level exactly
-                self._graphs.clear()
-                old_caps = (self.LCAP, self.FCAP, self.OCAP)
-                self._grow_caps(oovf, fovf,
-                                scal[11:11 + len(self.FAM_CAPS)])
-                if ovf or self.LCAP < 4 * self.OCAP:
-                    self.LCAP = self._round_cap(
-                        max((4 * self.LCAP) if ovf else self.LCAP,
-                            4 * self.OCAP))
-                if hcovf:
-                    # a chunk had more hard lanes than the buffer holds
-                    while self.HCAP < 2 * scal[-1]:
-                        self.HCAP *= 2
-                if hovf:
-                    # probe walk blew its round budget: table too full
-                    self.VCAP *= 4
-                    st.set_table(self._rehash_tables(st.vis, self.VCAP))
-                if verbose:
-                    print(f"level {depth}: buffer overflow (ovf={ovf} "
-                          f"fovf={fovf} hovf={hovf} oovf={oovf} "
-                          f"hcovf={hcovf}), LCAP={self.LCAP} "
-                          f"FCAP={self.FCAP} OCAP={self.OCAP} "
-                          f"VCAP={self.VCAP} HCAP={self.HCAP}")
-                if (self.LCAP, self.FCAP, self.OCAP) != old_caps:
-                    if self.LCAP != st.lcap:
-                        st = self._grow(st, self.LCAP)
-                    grow_table_if_needed(st)
-            n_front = harvest(st, scal, inv_ok)
+            with obs.span("level_dispatch"):
+                grow_table_if_needed(st)
+                while True:
+                    n_chunks = (n_front + self.chunk - 1) // self.chunk
+                    key = self._graph_key("step", st)
+                    for _ in range(n_chunks):
+                        self._graphs.run(key, lambda: self._chunk_step(st))
+                    scal, inv_ok = self._finalize(st)
+                    ovf, fovf, hovf, oovf = (bool(scal[4]), bool(scal[5]),
+                                             bool(scal[8]), bool(scal[9]))
+                    hcovf = bool(scal[-2])
+                    if not (ovf or fovf or hovf or oovf or hcovf):
+                        break
+                    # overflow: the table was rolled back and the frontier
+                    # kept, so grow and replay the level exactly
+                    self._graphs.clear()
+                    old_caps = (self.LCAP, self.FCAP, self.OCAP)
+                    self._grow_caps(oovf, fovf,
+                                    scal[11:11 + len(self.FAM_CAPS)])
+                    if ovf or self.LCAP < 4 * self.OCAP:
+                        self.LCAP = self._round_cap(
+                            max((4 * self.LCAP) if ovf else self.LCAP,
+                                4 * self.OCAP))
+                    if hcovf:
+                        # a chunk had more hard lanes than the buffer holds
+                        while self.HCAP < 2 * scal[-1]:
+                            self.HCAP *= 2
+                    if hovf:
+                        # probe walk blew its round budget: table too full
+                        self.VCAP *= 4
+                        st.set_table(self._rehash_tables(st.vis, self.VCAP))
+                    if verbose:
+                        print(f"level {depth}: buffer overflow (ovf={ovf} "
+                              f"fovf={fovf} hovf={hovf} oovf={oovf} "
+                              f"hcovf={hcovf}), LCAP={self.LCAP} "
+                              f"FCAP={self.FCAP} OCAP={self.OCAP} "
+                              f"VCAP={self.VCAP} HCAP={self.HCAP}")
+                    if (self.LCAP, self.FCAP, self.OCAP) != old_caps:
+                        if self.LCAP != st.lcap:
+                            st = self._grow(st, self.LCAP)
+                        grow_table_if_needed(st)
+            with obs.span("harvest"):
+                n_front = harvest(st, scal, inv_ok)
             depth = driver.gate_level_depth(res, depth, scal[0], scal[6],
                                             scal[7])
+            t_dev += time.perf_counter() - t1
             if checkpoint_path is not None and \
                     driver.ckpt_due_at_level(depth, checkpoint_every):
                 save(st)
+            obs.dispatch(kind="level", depth=depth, frontier=n_front,
+                         metrics=res.metrics.as_dict())
             if verbose:
                 print(f"depth {depth}: +{scal[0]} states (total "
                       f"{res.distinct_states}), frontier {n_front}, "
@@ -1531,6 +1595,7 @@ class Engine:
         # the graphs hold their buffers' memory: drop them with the run
         self._graphs.clear()
         res.seconds = time.perf_counter() - t0
+        res.phase_seconds["device_levels"] = t_dev
         return res
 
     # ------------------------------------------------------------------

@@ -74,6 +74,11 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library yet."""
+    return _lib is not None
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib

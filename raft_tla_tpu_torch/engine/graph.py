@@ -19,6 +19,11 @@ the rest.  All graphs of one runner share one memory pool: they are
 replayed one at a time on one stream, and what they compute lands in
 the persistent buffers, never in a graph's own outputs.
 
+Each warm-up and capture runs inside the run's ``compile`` span (the
+reference warms its executables under one such span), entered and left
+on the host around the capture, so nothing of the observability layer
+is inside a captured program.
+
 Launch counts stay true device launches: a wrapper that launches a
 hand kernel while a capture is under way tallies it as captured
 (``LaunchCounter.captured``), the runner keeps the tally per graph, and
@@ -31,6 +36,7 @@ from typing import Callable, Dict, Hashable, Tuple
 
 import torch
 
+from ..obs import NULL_OBS
 from .fingerprint import PROBE_CLAIM_LAUNCHES
 
 
@@ -38,10 +44,14 @@ class GraphRunner:
     """Runs a program per shape key: eagerly on the CPU, or as a
     captured graph's replay on a CUDA device (``capture`` False keeps
     the card eager, for the tests and timings that hold the graph
-    against the program it captured)."""
+    against the program it captured).  ``obs`` is the run's
+    observability bundle, whose ``compile`` span times each warm-up and
+    capture."""
 
-    def __init__(self, device: torch.device, capture: bool = True):
+    def __init__(self, device: torch.device, capture: bool = True,
+                 obs=None):
         self.device = device
+        self.obs = obs if obs is not None else NULL_OBS
         self.capture = capture and device.type == "cuda"
         self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, int]] = {}
         self._pool = None
@@ -69,17 +79,19 @@ class GraphRunner:
         PROBE_CLAIM_LAUNCHES.count += held
 
     def _warm_and_capture(self, key: Hashable, fn: Callable[[], None]):
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn()
-        cur.wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = PROBE_CLAIM_LAUNCHES.captured
-        with torch.cuda.graph(graph, pool=self._pool):
-            fn()
-        self._graphs[key] = (graph, PROBE_CLAIM_LAUNCHES.captured - before)
-        self.captures += 1
+        with self.obs.span("compile"):
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                fn()
+            cur.wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            before = PROBE_CLAIM_LAUNCHES.captured
+            with torch.cuda.graph(graph, pool=self._pool):
+                fn()
+            self._graphs[key] = (graph,
+                                 PROBE_CLAIM_LAUNCHES.captured - before)
+            self.captures += 1

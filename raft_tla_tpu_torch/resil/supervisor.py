@@ -23,11 +23,12 @@ A sticky CUDA error poisons the process's context: a retry in the same
 process then fails again and the run ends in ``RetryExhausted`` with
 that error.  Nothing here moves a run to another device.
 
+Every retry is stamped into the run ledger (``kind="retry"``) and the
+heartbeat (``status="backoff"``) through ``obs.retry``, so
+``tools/watch.py`` shows a retrying run instead of a silent gap.
+
 Because the engine resumes bit-exact from level-boundary checkpoints,
 a supervised run's final counts are identical to an unfaulted run's.
-
-``obs`` is accepted so the call is the reference's; this package has no
-observability bundle yet, so its hooks are no-ops (``_NullObs``).
 """
 
 from __future__ import annotations
@@ -53,13 +54,6 @@ class RetryExhausted(RuntimeError):
             f"last error: {last}")
         self.attempts = attempts
         self.last = last
-
-
-class _NullObs:
-    """The observability hooks the supervisor calls, as no-ops."""
-
-    def retry(self, **_kw):
-        pass
 
 
 def _jitter(attempt: int) -> float:
@@ -116,7 +110,8 @@ def supervised_check(make_engine: Callable[[], object],
     release between attempts (the chaos differentials retry dozens of
     times on one CPU engine).  Remaining kwargs pass through to
     ``check()``."""
-    obs = obs if obs is not None else _NullObs()
+    from ..obs import NULL_OBS
+    obs = obs if obs is not None else NULL_OBS
     # the caller's resume source: retries fall back to it (or to a
     # fresh start) whenever the checkpoint chain has no valid member —
     # never to a stale chain path from an earlier attempt

@@ -158,3 +158,41 @@ def test_paxos_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_obs_modules_import_without_jax_and_do_no_work():
+    """The observability package and the modules its slice changed
+    import with JAX and the JAX package blocked, the package walk
+    reaches them, and importing them initialises no CUDA, starts no
+    profiler and opens no file."""
+    code = textwrap.dedent("""
+        import os, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import torch
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.obs"] + ["raft_tla_tpu_torch.obs." + m
+            for m in ("metrics", "spans", "ledger", "heartbeat",
+                      "registry", "resources")]
+        changed = ["raft_tla_tpu_torch." + m for m in (
+            "cli", "engine.bfs", "engine.graph", "engine.cuda_ext",
+            "resil.supervisor")]
+        assert set(new) <= names, sorted(set(new) - names)
+        fds = len(os.listdir("/proc/self/fd"))
+        for n in new + changed:
+            __import__(n)
+        assert len(os.listdir("/proc/self/fd")) == fds
+        assert not torch.cuda.is_initialized()
+        from torch.autograd.profiler import _is_profiler_enabled
+        assert not _is_profiler_enabled
+        from raft_tla_tpu_torch.obs import NULL_OBS
+        assert not NULL_OBS.enabled and NULL_OBS.run_id is None
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
