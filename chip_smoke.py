@@ -145,8 +145,39 @@ Phases (any failure exits non-zero before the final line):
      the median device time of those inside graph replays is printed
      beside fixture (d)'s eager time and bound.
 
-``python3 chip_smoke.py --phase 15`` (or ``--phase 16``) runs phases 1,
-2 and 15 (or 16) alone and prints no result line.
+ 17. observability on the spill engine and the walker, and ``cli obs``,
+     through the CLI in this process: (a) BASELINE config #2 on ``check
+     --spill --host-table --partitions 4 --sweep-stage`` (2^18-row
+     segments, a 2^20-slot device cache, ``--no-store``) to depth 18
+     with ``--ledger``, ``--heartbeat``, ``--trace-timeline``,
+     ``--registry`` and ``--stats-json`` must give the reference's
+     first 18 level sizes (1,382,258 states past the constraints) with
+     at least one reseed and levels 17 and 18 spilled in more than one
+     segment, one row per
+     dispatch with every counter (each level row's frontier its level's
+     size; the last row's counters the stats line's), a finished
+     heartbeat at depth 18, one finished registry record with ``cmd``
+     ``check``, the ``level_dispatch``, ``harvest``, ``host_sweep``,
+     ``h2d_stage`` (inside ``level_dispatch``) and ``sweep_overlap``
+     spans, one ``compile`` span per graph capture, and a timeline that
+     parses; (b) the classic engine on the same cfg to the same depth
+     into the same registry, then ``obs ls --cmd check`` lists both,
+     ``obs diff <classic> <spill>`` exits 0 with a verdict that is not
+     ``mismatch``, ``obs regress <spill> --against <classic>`` and ``obs
+     regress last --baseline <classic stats json>`` exit 0, and ``obs
+     show last`` parses; (c) phase 13a's hunt through ``simulate`` with
+     the four sinks: the reference's stats and witness, one ``sim`` row
+     per dispatch with exactly the dispatch counters, as many
+     ``sim_dispatch`` spans, a record with ``cmd`` ``simulate`` and one
+     ``compile`` span per capture; (d) (a)'s command to depth 15 under
+     ``--profile-dir``: the trace holds the dedup kernel's events, as
+     many as its launches, and the ``level_dispatch`` ranges; the
+     median in-graph kernel time is printed beside fixture (h)'s eager
+     time and bound.  Its measures are one JSON line before the kernel
+     line.
+
+``python3 chip_smoke.py --phase 15`` (or ``--phase 16``, ``--phase 17``)
+runs phases 1, 2 and 15 (or 16, 17) alone and prints no result line.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -2136,10 +2167,374 @@ def obs_phase(torch, fp, card, eager_ms, bound_ms):
     return dict(sinks=a, profile=b, wall=wall)
 
 
+# Phase 17: the observability bundle on the spill engine and the
+# walker, and ``cli obs``.  (a) config #2 on the spill engine with the
+# host table to depth 18 (SPILL_LEVEL_SIZES[:18]); a 2^20-slot device
+# cache (0.4 of it, 419,430 keys, before a reseed) against level 18's
+# 938,079 rows reseeds, and a 2^18-row segment spills levels 17 and 18
+# in several blocks; (b) the classic engine on the same cfg, the same
+# depth, into the same registry; (d) (a)'s command to depth 15 under
+# torch.profiler.  1,382,258 is the sum of the first 18 level sizes (the
+# states that pass the constraints); the distinct count also holds the
+# pruned states, and (b)'s classic run must give the spill run's.  The
+# distinct count at depth 15 is the port's classic engine's on the CPU
+# (this cfg, chunk 4096), whose level sizes are the reference's.
+SPILL_OBS_DEPTH, SPILL_OBS_LEVEL_SUM = 18, 1_382_258
+SPILL_OBS_FLAGS = ["--spill", "--host-table", "--partitions", "4",
+                   "--sweep-stage", "--chunk", "4096", "--seg",
+                   str(1 << 18), "--vcap", str(1 << 20), "--no-store",
+                   "--device", "cuda"]
+CLASSIC2_FLAGS = ["--chunk", "4096", "--lcap", str(1 << 21), "--vcap",
+                  str(1 << 22), "--no-store", "--device", "cuda"]
+SPILL_PROFILE_DEPTH, SPILL_PROFILE_DISTINCT = 15, 57_438
+SPILL_OBS_SPANS = ("level_dispatch", "harvest", "host_sweep", "h2d_stage",
+                   "sweep_overlap")
+
+
+def _ledger_rows(path):
+    return [json.loads(x) for x in open(path)]
+
+
+def _contained(events, inner, outer):
+    """Every ``inner`` span of a Chrome trace lies inside an ``outer``."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e["name"] == outer]
+    return all(any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                   for a, b in spans)
+               for e in events if e["name"] == inner)
+
+
+def spill_obs_phase(torch, fp, here, tmp, card):
+    """Phase 17a: ``check --spill --host-table --sweep-stage`` on config
+    #2 to depth 18 with the ledger, heartbeat, timeline, registry and
+    stats-json sinks, each checked against the stats line and the
+    engine."""
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    from raft_tla_tpu_torch.obs import CHECK_COUNTER_KEYS, BURST_COUNTER_KEYS
+    cfg = _config2_cfg(here, tmp)
+    d = os.path.join(tmp, "17a")
+    os.makedirs(d)
+    sj = os.path.join(d, "stats.json")
+    argv = (["check", cfg] + CONFIG2_FLAGS + SPILL_OBS_FLAGS +
+            ["--max-depth", str(SPILL_OBS_DEPTH), "--stats-json", sj] +
+            _sink_argv(d))
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    torch.cuda.synchronize()
+    ctr.reset()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(argv, cls=SpillEngine)
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    check(rc == 0 and len(seen) == 1, f"phase 17a exit {rc}: {err[-2000:]}")
+    (eng, res), = seen
+    stats = json.loads(out.partition("\n")[0])
+    check(sum(res.level_sizes) == SPILL_OBS_LEVEL_SUM and
+          res.depth == SPILL_OBS_DEPTH and
+          res.level_sizes == SPILL_LEVEL_SIZES[:SPILL_OBS_DEPTH] and
+          stats["distinct_states"] == res.distinct_states and
+          json.load(open(sj)) == stats,
+          f"phase 17a: {res} level sizes {res.level_sizes}")
+    segs = {lv: eng.segments_by_level.get(lv, 0)
+            for lv in (SPILL_OBS_DEPTH - 1, SPILL_OBS_DEPTH)}
+    check(eng.reseeds >= 1, "phase 17a: the device cache never reseeded")
+    check(min(segs.values()) > 1,
+          f"phase 17a: segments spilled at levels 17-18 {segs}")
+    check(launches > 0, "phase 17a: no dedup launch")
+    rows = _ledger_rows(os.path.join(d, "l.jsonl"))
+    check(rows[0]["kind"] == "meta" and rows[0]["cmd"] == "check" and
+          rows[0]["backend"]["platform"] == "gpu",
+          f"phase 17a meta row {rows[0]}")
+    drows = [x for x in rows if x["kind"] in ("burst", "level")]
+    for x in drows:
+        check(not set(CHECK_COUNTER_KEYS) - set(x),
+              f"phase 17a row lacks {set(CHECK_COUNTER_KEYS) - set(x)}")
+        check(x.get("device_memory", {}).get("peak_bytes_in_use", 0) > 0,
+              f"phase 17a row without device memory: {x}")
+    n_level = sum(x["kind"] == "level" for x in drows)
+    check(n_level == res.depth - res.levels_fused and
+          len(drows) - n_level <= res.burst_dispatches,
+          f"phase 17a: {len(drows)} rows, {n_level} level rows for "
+          f"{res.depth - res.levels_fused} per-level dispatches")
+    lv_rows = [x for x in drows if x["kind"] == "level"]
+    check([x["frontier"] for x in lv_rows] ==
+          [res.level_sizes[x["depth"] - 1] for x in lv_rows],
+          "phase 17a: a level row's frontier is not its level's size")
+    for k in BURST_COUNTER_KEYS + ("distinct_states", "generated_states"):
+        check(drows[-1][k] == stats[k],
+              f"phase 17a last row {k} {drows[-1][k]} != {stats[k]}")
+    hb = json.load(open(os.path.join(d, "hb.json")))
+    check(hb["status"] == "finished" and hb["depth"] == SPILL_OBS_DEPTH and
+          hb["states_enqueued"] == res.distinct_states,
+          f"phase 17a heartbeat {hb}")
+    regd = os.path.join(d, "reg")
+    recs = os.listdir(regd)
+    check(len(recs) == 1, f"phase 17a registry holds {recs}")
+    rec = json.load(open(os.path.join(regd, recs[0])))
+    check(rec["status"] == "finished" and rec["cmd"] == "check" and
+          rec["level_sizes"] == SPILL_LEVEL_SIZES[:SPILL_OBS_DEPTH],
+          f"phase 17a record {rec['status']} {rec['cmd']}")
+    spans = rec["spans"]
+    check(set(SPILL_OBS_SPANS) <= set(spans),
+          f"phase 17a spans {sorted(spans)}")
+    check(spans["sweep_overlap"]["count"] == eng.sweep_stage_hits and
+          spans["host_sweep"]["count"] == SPILL_OBS_DEPTH + 1 and
+          spans["level_dispatch"]["count"] == n_level,
+          f"phase 17a span counts {spans} (staged hits "
+          f"{eng.sweep_stage_hits})")
+    n_compile = spans.get("compile", {}).get("count", 0)
+    check(eng._graphs.captures > 0 and n_compile == eng._graphs.captures,
+          f"phase 17a compile spans {n_compile} != captures "
+          f"{eng._graphs.captures}")
+    tl = json.load(open(rec["artifacts"]["timeline"]))
+    check({e["name"] for e in tl} == set(spans),
+          "phase 17a timeline spans differ from the record's")
+    check(_contained(tl, "h2d_stage", "level_dispatch"),
+          "phase 17a: an h2d_stage span lies outside level_dispatch")
+    log(f"phase 17a spill engine with the sinks [{card}]: config #2 to "
+        f"depth {res.depth}, {res.distinct_states} distinct, level sizes "
+        f"== the reference's; wall {wall:.2f} s ({res.seconds:.2f} s in "
+        f"check); {len(rows)} ledger rows ({n_level} level, "
+        f"{len(drows) - n_level} burst, the meta row and "
+        f"{len(rows) - len(drows) - 1} resource rows); reseeds "
+        f"{eng.reseeds}; segments spilled at levels 17, 18: "
+        f"{segs[SPILL_OBS_DEPTH - 1]}, {segs[SPILL_OBS_DEPTH]}; staged "
+        f"sweep hits {eng.sweep_stage_hits}, misses "
+        f"{eng.sweep_stage_misses}; heartbeat finished; spans "
+        + ", ".join(f"{k} {v['count']} / {v['seconds']:.3f} s"
+                    for k, v in sorted(spans.items()))
+        + f"; graphs captured {eng._graphs.captures}; dedup launches "
+        f"{launches}; host seconds "
+        f"{ {k: round(v, 3) for k, v in eng.host_seconds.items()} }")
+    return dict(wall=wall, run_s=res.seconds, launches=launches,
+                distinct=res.distinct_states, generated=res.generated_states,
+                rows=len(rows), level_rows=n_level, reseeds=eng.reseeds,
+                segments_17_18=[segs[SPILL_OBS_DEPTH - 1],
+                                segs[SPILL_OBS_DEPTH]],
+                hits=eng.sweep_stage_hits, misses=eng.sweep_stage_misses,
+                captures=eng._graphs.captures,
+                spans={k: v for k, v in sorted(spans.items())},
+                registry=regd, run_id=rec["run_id"], stats_json=sj,
+                argv=argv)
+
+
+def obs_query_phase(torch, fp, here, tmp, card, a):
+    """Phase 17b: the classic engine on 17a's cfg and depth into 17a's
+    registry, then ``obs ls/diff/regress/show`` over the two records."""
+    regd = a["registry"]
+    sj = os.path.join(tmp, "17b_stats.json")
+    argv = (["check", _config2_cfg(here, tmp)] + CONFIG2_FLAGS +
+            CLASSIC2_FLAGS + ["--max-depth", str(SPILL_OBS_DEPTH),
+                              "--registry", regd, "--stats-json", sj])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"phase 17b classic exit {rc}: {err[-2000:]}")
+    (_eng, res), = seen
+    check(res.distinct_states == a["distinct"] and
+          res.level_sizes == SPILL_LEVEL_SIZES[:SPILL_OBS_DEPTH],
+          f"phase 17b classic: {res}, the spill run {a['distinct']}")
+    ids = sorted(f[:-5] for f in os.listdir(regd))
+    check(len(ids) == 2 and a["run_id"] in ids, f"phase 17b registry {ids}")
+    classic = [i for i in ids if i != a["run_id"]][0]
+
+    def obs(*args):
+        rc, text, err, _seen = cli_run(["obs", args[0], "--registry",
+                                        regd] + list(args[1:]))
+        return rc, text, err
+    t1 = time.perf_counter()
+    rc_ls, ls, _e = obs("ls", "--cmd", "check")
+    check(rc_ls == 0 and all(i in ls for i in ids),
+          f"phase 17b obs ls: {rc_ls} {ls}")
+    rc_d, dtext, derr = obs("diff", classic, a["run_id"])
+    diff = json.loads(dtext) if rc_d in (0, 1) else {}
+    check(rc_d == 0 and diff.get("verdict") != "mismatch",
+          f"phase 17b obs diff: {rc_d} {dtext[:2000]} {derr[-500:]}")
+    rc_r, rtext, rerr = obs("regress", a["run_id"], "--against", classic)
+    check(rc_r == 0, f"phase 17b obs regress --against: {rc_r} "
+          f"{rtext[:2000]} {rerr[-500:]}")
+    rc_b, btext, berr = obs("regress", "last", "--baseline", sj)
+    check(rc_b == 0, f"phase 17b obs regress --baseline: {rc_b} "
+          f"{btext[:2000]} {berr[-500:]}")
+    rc_s, stext, _e = obs("show", "last")
+    shown = json.loads(stext)
+    check(rc_s == 0 and shown["run_id"] == ids[-1],
+          f"phase 17b obs show last: {rc_s}")
+    query_s = time.perf_counter() - t1
+    log(f"phase 17b cli obs [{card}]: the classic engine on config #2 to "
+        f"depth {SPILL_OBS_DEPTH} ({res.distinct_states} states, "
+        f"{wall:.2f} s) beside 17a's spill run in one registry; obs ls "
+        f"--cmd check lists both; obs diff <classic> <spill>: verdict "
+        f"{diff['verdict']}, mode_drift {diff['mode_drift']}, level sizes "
+        f"equal {diff['parity']['level_sizes_equal']}; obs regress "
+        f"--against and --baseline <classic stats json> exit 0; obs show "
+        f"last parses; the five queries {query_s:.2f} s")
+    return dict(classic_wall=wall, verdict=diff["verdict"],
+                mode_drift=diff["mode_drift"], query_s=query_s)
+
+
+def sim_obs_phase(torch, fp, here, tmp, card):
+    """Phase 17c: phase 13a's hunt through ``simulate`` with the four
+    file sinks."""
+    from raft_tla_tpu_torch.obs import SIM_COUNTER_KEYS, SIM_DISPATCH_KEYS
+    from raft_tla_tpu_torch.sim import SimEngine
+    d = os.path.join(tmp, "17c")
+    os.makedirs(d)
+    argv = [os.path.join(here, x) if x.endswith(".cfg") else x
+            for x in SIM_CMD] + ["--device", "cuda"] + _sink_argv(d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(argv, SimEngine, "run")
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"phase 17c simulate exit code {rc}: {err[-300:]}")
+    (eng, res), = seen
+    stats = json.loads(out.partition("\n")[0])
+    got = {k: stats[k] for k in SIM_STATS}
+    check(got == SIM_STATS, f"phase 17c stats {got} != {SIM_STATS}")
+    h = res.hits[0]
+    check((h.walker, h.depth) == (SIM_WALKER, SIM_DEPTH),
+          f"phase 17c hit walker {h.walker} at depth {h.depth}")
+    rows = _ledger_rows(os.path.join(d, "l.jsonl"))
+    check(rows[0]["kind"] == "meta" and rows[0]["cmd"] == "simulate",
+          f"phase 17c meta row {rows[0]}")
+    srows = [x for x in rows if x["kind"] == "sim"]
+    n_disp = -(-stats["steps_dispatched"] // 256)
+    check(len(srows) == n_disp, f"phase 17c: {len(srows)} sim rows for "
+          f"{n_disp} dispatches")
+    for x in srows:
+        check(set(x) & set(SIM_COUNTER_KEYS) == set(SIM_DISPATCH_KEYS),
+              f"phase 17c row keys {sorted(x)}")
+    check({k: srows[-1][k] for k in SIM_DISPATCH_KEYS} ==
+          {k: stats[k] for k in SIM_DISPATCH_KEYS},
+          f"phase 17c last row {srows[-1]} vs {stats}")
+    regd = os.path.join(d, "reg")
+    (recf,) = os.listdir(regd)
+    rec = json.load(open(os.path.join(regd, recf)))
+    check(rec["cmd"] == "simulate" and rec["status"] == "finished" and
+          rec["depth"] == stats["steps_dispatched"],
+          f"phase 17c record {rec['cmd']} {rec['status']}")
+    spans = rec["spans"]
+    n_compile = spans.get("compile", {}).get("count", 0)
+    check(spans["sim_dispatch"]["count"] == len(srows) and
+          eng._graphs.captures > 0 and n_compile == eng._graphs.captures,
+          f"phase 17c spans {spans}, captures {eng._graphs.captures}")
+    hb = json.load(open(os.path.join(d, "hb.json")))
+    check(hb["status"] == "finished" and
+          hb["depth"] == stats["steps_dispatched"],
+          f"phase 17c heartbeat {hb}")
+    tl = json.load(open(rec["artifacts"]["timeline"]))
+    check({e["name"] for e in tl} == set(spans),
+          "phase 17c timeline spans differ from the record's")
+    log(f"phase 17c simulate with the sinks [{card}]: stats == the "
+        f"reference's, walker {h.walker}'s witness at depth {h.depth}; "
+        f"{len(srows)} sim row(s) with exactly the dispatch counters; "
+        f"record cmd simulate; spans "
+        + ", ".join(f"{k} {v['count']} / {v['seconds']:.3f} s"
+                    for k, v in sorted(spans.items()))
+        + f" (captures {eng._graphs.captures}, replays "
+        f"{eng._graphs.replays}); wall {wall:.2f} s")
+    return dict(wall=wall, sim_rows=len(srows),
+                captures=eng._graphs.captures, replays=eng._graphs.replays,
+                spans={k: v for k, v in sorted(spans.items())})
+
+
+def spill_profile_phase(torch, fp, here, tmp, card, a, eager_ms,
+                        bound_ms):
+    """Phase 17d: 17a's command to depth 15 with ``--profile-dir``: the
+    trace names the dedup kernel, its kernel events equal the run's
+    launches, and it holds the level_dispatch ranges."""
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    d = os.path.join(tmp, "17d")
+    os.makedirs(d)
+    prof = os.path.join(d, "prof")
+    argv = [x for x in a["argv"]]
+    argv[argv.index("--max-depth") + 1] = str(SPILL_PROFILE_DEPTH)
+    argv = argv[:argv.index("--stats-json")] + _sink_argv(d) + [
+        "--profile-dir", prof]
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    torch.cuda.synchronize()
+    ctr.reset()
+    t0 = time.perf_counter()
+    rc, out, err, seen = cli_run(argv, cls=SpillEngine)
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    check(rc == 0, f"phase 17d exit {rc}: {err[-2000:]}")
+    (eng, res), = seen
+    check(res.distinct_states == SPILL_PROFILE_DISTINCT and
+          res.level_sizes == SPILL_LEVEL_SIZES[:SPILL_PROFILE_DEPTH],
+          f"phase 17d: {res}")
+    (name,) = os.listdir(prof)
+    path = os.path.join(prof, name)
+    nbytes = os.path.getsize(path)
+    t1 = time.perf_counter()
+    events = json.load(open(path))["traceEvents"]
+    parse_s = time.perf_counter() - t1
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    check({"level_dispatch", "harvest", "host_sweep", "compile"} <= ranges,
+          f"phase 17d record_function ranges {sorted(ranges)}")
+    runtime = {e.get("args", {}).get("correlation"): e.get("name", "")
+               for e in events if e.get("cat") == "cuda_runtime"}
+    kern = [e for e in events if e.get("cat") == "kernel" and
+            DEDUP_SYMBOL in e.get("name", "")]
+    check(len(kern) == launches > 0,
+          f"phase 17d: {len(kern)} {DEDUP_SYMBOL} events against "
+          f"{launches} launches")
+    in_graph, eager = [], []
+    for e in kern:
+        args = e.get("args", {})
+        launch = runtime.get(args.get("correlation"), "")
+        (in_graph if launch.startswith("cudaGraphLaunch") or
+         args.get("graph node id") else eager).append(e)
+    graph_ms = _median([e["dur"] / 1e3 for e in in_graph])
+    eager_trace_ms = _median([e["dur"] / 1e3 for e in eager])
+    log(f"phase 17d spill engine to depth {SPILL_PROFILE_DEPTH} with "
+        f"--profile-dir [{card}]: {res.distinct_states} states; wall "
+        f"{wall:.2f} s (engine {res.seconds:.2f} s); trace {nbytes} B, "
+        f"{len(events)} events, parsed in {parse_s:.2f} s; ranges "
+        f"{sorted(ranges & set(SPILL_OBS_SPANS + ('compile',)))}; "
+        f"{len(kern)} {DEDUP_SYMBOL} events == {launches} launches "
+        f"({eng._graphs.replays} replays of {eng._graphs.captures} "
+        f"graphs, reseeds {eng.reseeds}); {len(eager)} eager, median "
+        f"{eager_trace_ms} ms; {len(in_graph)} inside graph replays"
+        + (f", median {graph_ms:.4f} ms" if in_graph else "")
+        + f"; fixture (h) eager {eager_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms")
+    return dict(wall=wall, engine_s=res.seconds, trace_bytes=nbytes,
+                events=len(events), parse_s=parse_s,
+                kernel_events=len(kern), launches=launches,
+                in_graph_events=len(in_graph), in_graph_ms=graph_ms,
+                eager_events=len(eager), eager_trace_ms=eager_trace_ms,
+                replays=eng._graphs.replays, captures=eng._graphs.captures)
+
+
+def spill_sim_obs_phase(torch, fp, here, card, eager_ms, bound_ms):
+    """Phase 17: observability on the spill engine and the walker, and
+    ``cli obs`` over the registry the runs wrote."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs17_")
+    try:
+        a = spill_obs_phase(torch, fp, here, tmp, card)
+        b = obs_query_phase(torch, fp, here, tmp, card, a)
+        c = sim_obs_phase(torch, fp, here, tmp, card)
+        d = spill_profile_phase(torch, fp, here, tmp, card, a, eager_ms,
+                                bound_ms)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in ("registry", "stats_json", "argv", "run_id"):
+        a.pop(k)
+    wall = time.perf_counter() - t0
+    log(f"phase 17 [{card}]: {wall:.1f} s")
+    return dict(spill_sinks=a, query=b, sim=c, profile=d, wall=wall)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--phase", "15"], ["--phase", "16"]):
-        print("usage: python3 chip_smoke.py [--phase 15|16]",
+    if argv not in ([], ["--phase", "15"], ["--phase", "16"],
+                    ["--phase", "17"]):
+        print("usage: python3 chip_smoke.py [--phase 15|16|17]",
               file=sys.stderr)
         return 2
     only = argv[1] if argv else None
@@ -2173,9 +2568,17 @@ def main(argv=None):
     cuda_ext.library()
     log(f"phase 2 build and load: {time.perf_counter() - t0:.1f} s")
     if only:
-        # phases 1, 2 and 15 or 16 alone: no result line
+        # phases 1, 2 and 15, 16 or 17 alone: no result line
         if only == "15":
             got = {"paxos": paxos_phase(torch, fp, cvt, home_slots, card)}
+        elif only == "17":
+            # fixture (h) gives the kernel's eager time and bound at the
+            # spill engine's shapes
+            h = kernel_phase(torch, fp, cvt, home_slots, card,
+                             fixtures="h")
+            got = {"obs17": spill_sim_obs_phase(
+                torch, fp, here, card, h["spill_ms"],
+                h["spill_bound_ms"])}
         else:
             # fixture (d) gives the kernel's eager time and bound
             d = kernel_phase(torch, fp, cvt, home_slots, card,
@@ -2317,10 +2720,14 @@ def main(argv=None):
     t15 = paxos_phase(torch, fp, cvt, home_slots, card)
     # phase 16: the observability bundle, the profiler's view
     t16 = obs_phase(torch, fp, card, meas["ms"], meas["bound_ms"])
+    # phase 17: the bundle on the spill engine and the walker, cli obs
+    t17 = spill_sim_obs_phase(torch, fp, here, card, meas["spill_ms"],
+                              meas["spill_bound_ms"])
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"phase17": t17}))
 
     print(json.dumps({"kernels": [{
         "name": "probe_claim_insert", "route": "cuda",
@@ -2375,7 +2782,17 @@ def main(argv=None):
         "in_graph_ms": t16["profile"]["in_graph_ms"],
         "in_graph_of": "phase 16b: config #1 to depth 16 under "
                        "torch.profiler, median device time of the kernel "
-                       "events of graph replays"}],
+                       "events of graph replays",
+        "spill_obs_launches": t17["spill_sinks"]["launches"],
+        "sim_obs_captures": t17["sim"]["captures"],
+        "spill_profiled_launches": t17["profile"]["launches"],
+        "spill_profiled_kernel_events": t17["profile"]["kernel_events"],
+        "spill_in_graph_launches": t17["profile"]["in_graph_events"],
+        "spill_in_graph_ms": t17["profile"]["in_graph_ms"],
+        "spill_in_graph_of": "phase 17d: config #2 on the spill engine "
+                             "with the host table to depth 15 under "
+                             "torch.profiler, median device time of the "
+                             "kernel events of graph replays"}],
         "obs": t16,
         "paxos": t15,
         "spill": {"config2_depth20": t14, "host_table_depth19": t14b},

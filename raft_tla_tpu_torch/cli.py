@@ -17,6 +17,12 @@ check|trace|simulate``.
                trace (exit 0 when found, 1 if not, 2 for an unknown
                name); ``--emit-seed FILE`` writes the witness end state
                as a seed for ``check --seed-trace FILE``.
+  obs ls|show|diff|regress --registry DIR
+               the run registry's query surface (``obs/report.py``):
+               the run table, one run's record, the parity verdict of
+               two runs (exit 1 on a count mismatch), and a run against
+               an earlier run or a baseline file (exit 1 on a
+               regression, 2 on a usage error), as the reference CLI's.
 
 ``--spec paxos`` checks the second tenant (``spec/paxos``) with the same
 engines and flags: the cfg positional is then optional (none or
@@ -46,10 +52,10 @@ N --sweep-stage`` for the host-partitioned visited table), and
 checkpoint on it (``resil/portable.py``).  ``check --ledger F
 --heartbeat F --trace-timeline F --profile-dir D --registry D`` write
 the reference's run ledger, heartbeat, span timeline and registry
-record, and a ``torch.profiler`` trace (``obs/``); the spill engine and
-``simulate`` refuse those flags (their hooks are not ported yet).  The
-stats line has the reference CLI's keys, in its order
-(``obs/metrics.py`` ``check_stats``).
+record, and a ``torch.profiler`` trace (``obs/``), on the classic and
+the spill engine, and ``simulate`` takes the same flags.  The stats
+line has the reference CLI's keys, in its order (``obs/metrics.py``
+``check_stats``).
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ import time
 
 from .cfg.parser import load_model
 from .config import Bounds
-from .obs.metrics import check_stats, sim_stats
+from .obs.metrics import check_stats, sim_counters, sim_stats
 
 
 def _apply_overrides(cfg, args, ir):
@@ -221,17 +227,12 @@ def _obs_flags_set(args) -> bool:
     return any(getattr(args, nm, None) for nm in _OBS_ARGS)
 
 
-def _obs_flag_names(args) -> str:
-    return ", ".join("--" + nm.replace("_", "-") for nm in _OBS_ARGS
-                     if getattr(args, nm, None))
-
-
-def _build_obs(args, ir, cfg):
-    """The observability bundle ``check``'s flags describe (NULL_OBS
-    when none is set): the spec name and IR fingerprint stamp every
-    ledger record, the command and the cfg ride the meta row and the
-    registry record, and the bundle describes the run's device
-    (``--device``)."""
+def _build_obs(args, ir, cfg, cmd):
+    """The observability bundle the flags describe (NULL_OBS when none
+    is set): the spec name and IR fingerprint stamp every ledger record,
+    the command (``check`` or ``simulate``) and the cfg ride the meta
+    row and the registry record, and the bundle describes the run's
+    device (``--device``)."""
     from .obs import NULL_OBS, from_flags
     from .utils import resolve_device
     if not _obs_flags_set(args):
@@ -241,7 +242,7 @@ def _build_obs(args, ir, cfg):
                       profile_dir=args.profile_dir, registry=args.registry,
                       meta={"spec": ir.name,
                             "ir_fingerprint": ir.fingerprint()},
-                      run_info={"cmd": "check", "cfg": repr(cfg)},
+                      run_info={"cmd": cmd, "cfg": repr(cfg)},
                       device=str(resolve_device(args.device)))
 
 
@@ -445,12 +446,6 @@ def cmd_check(args) -> int:
               "package: run on one device, or use --spill",
               file=sys.stderr)
         return 2
-    if args.spill and args.engine != "oracle" and _obs_flags_set(args):
-        print(f"{_obs_flag_names(args)} with --spill: the spill engine's "
-              "observability hooks are not ported to this package yet; "
-              "run without --spill, or without the flag",
-              file=sys.stderr)
-        return 2
     err = _check_retry_flags(args) or _install_chaos(args)
     if err:
         print(err, file=sys.stderr)
@@ -526,7 +521,7 @@ def _check(args, ir, cfg) -> int:
             eng = _engine(cfg, args, store_states=not args.no_store)
             eng.ckpt_keep = args.ckpt_keep
             return eng
-        obs = _build_obs(args, ir, cfg)
+        obs = _build_obs(args, ir, cfg, "check")
         obs.start()
         done = False
         try:
@@ -679,11 +674,6 @@ def cmd_simulate(args) -> int:
             print(f"{nm} must be positive (got {val})",
                   file=sys.stderr)
             return 2
-    if _obs_flags_set(args):
-        print(f"{_obs_flag_names(args)} on simulate: the random-walk "
-              "engine's observability hooks are not ported to this "
-              "package yet; run without the flag", file=sys.stderr)
-        return 2
     ir, cfg = _load_cfg(args)
     if not _check_target(args.target, ir):
         return 2
@@ -700,10 +690,22 @@ def cmd_simulate(args) -> int:
                     guard_matmul=args.guard_matmul,
                     delta_matmul=args.delta_matmul,
                     sym_canon=args.sym_canon, device=args.device)
+    obs = _build_obs(args, ir, cfg, "simulate")
+    obs.start()
     t0 = time.perf_counter()
-    r = eng.run(steps=args.steps,
-                steps_per_dispatch=args.steps_per_dispatch,
-                verbose=args.verbose)
+    done = False
+    try:
+        r = eng.run(steps=args.steps,
+                    steps_per_dispatch=args.steps_per_dispatch,
+                    verbose=args.verbose, obs=obs)
+        done = True
+    finally:
+        if done:
+            obs.finish(depth=int(r.steps_dispatched),
+                       states=int(r.walker_steps),
+                       counters=sim_counters(r))
+        else:
+            obs.finish(status="failed")
     out = sim_stats(r, target=args.target, policy=args.policy,
                     seed=args.seed,
                     platform="gpu" if eng.device.type == "cuda" else "cpu")
@@ -737,6 +739,175 @@ def cmd_simulate(args) -> int:
         _write_seed(args.emit_seed,
                     _seed_obj(ir, h.trace[-1][1], h.hist, h.state_arrs))
     return 0
+
+
+def _load_baseline_file(path, row):
+    """A baseline for ``obs regress``: a --stats-json payload, a bench
+    headline object, a registry record, or a bench A/B file with a
+    ``rows`` map (then --baseline-row picks one)."""
+    with open(path) as fh:
+        obj = json.load(fh)
+    if isinstance(obj, dict) and isinstance(obj.get("rows"), dict):
+        if not row:
+            raise SystemExit(
+                f"{path} holds multiple A/B rows; pick one with "
+                f"--baseline-row (known: "
+                f"{', '.join(sorted(obj['rows']))})")
+        if row not in obj["rows"]:
+            raise SystemExit(
+                f"--baseline-row {row!r} not in {path} (known: "
+                f"{', '.join(sorted(obj['rows']))})")
+        return obj["rows"][row]
+    if row:
+        raise SystemExit(f"--baseline-row given but {path} has no "
+                         "'rows' map")
+    return obj
+
+
+def cmd_obs(args) -> int:
+    """``obs`` — the run registry's query surface (``obs/report.py``).
+
+    ls      — the run table, filterable (newest last).
+    show    — one run's whole record as indented JSON.
+    diff    — the parity verdict and per-phase span deltas of two runs;
+              exit 1 on a count mismatch.
+    regress — a run against an earlier run (--against) or a baseline
+              file (--baseline); exit 1 on a count mismatch or a
+              tripped --max-span-ratio bound, 2 on a usage error.
+
+    Run tokens: a full run id, a unique id prefix, or ``last``."""
+    from .obs.registry import RunRegistry
+    from .obs.report import diff_runs, regress
+    reg = RunRegistry(args.registry)
+
+    def resolve(token):
+        rid = reg.resolve(token)
+        if rid is None:
+            ids = reg.run_ids()
+            print(f"no unique run matches {token!r} in "
+                  f"{args.registry} ({len(ids)} records"
+                  + (f"; newest {ids[-1]}" if ids else "")
+                  + ")", file=sys.stderr)
+        return rid
+
+    if args.obs_cmd == "ls":
+        rows = []
+        for _rid, rec in reg.records():
+            if args.spec and rec.get("spec") != args.spec:
+                continue
+            if args.cmd_filter and rec.get("cmd") != args.cmd_filter:
+                continue
+            if args.status and rec.get("status") != args.status:
+                continue
+            rows.append(rec)
+        print(f"{'run_id':34s} {'cmd':9s} {'spec':6s} {'status':9s} "
+              f"{'depth':>6s} {'states':>10s} {'seconds':>8s}")
+        for rec in rows:
+            print(f"{str(rec.get('run_id', '?')):34s} "
+                  f"{str(rec.get('cmd', '?')):9s} "
+                  f"{str(rec.get('spec', '-')):6s} "
+                  f"{str(rec.get('status', '?')):9s} "
+                  f"{str(rec.get('depth', '-')):>6s} "
+                  f"{str(rec.get('distinct_states', '-')):>10s} "
+                  f"{str(rec.get('seconds', '-')):>8s}")
+        return 0
+    if args.obs_cmd == "show":
+        rid = resolve(args.run)
+        if rid is None:
+            return 2
+        print(json.dumps(reg.load(rid), indent=1))
+        return 0
+    if args.obs_cmd == "diff":
+        ra, rb = resolve(args.run_a), resolve(args.run_b)
+        if ra is None or rb is None:
+            return 2
+        rep = diff_runs(reg.load(ra), reg.load(rb))
+        print(json.dumps(rep))
+        return 1 if rep["verdict"] == "mismatch" else 0
+    # regress
+    if bool(args.against) == bool(args.baseline):
+        print("obs regress needs exactly one of --against RUN / "
+              "--baseline FILE", file=sys.stderr)
+        return 2
+    rid = resolve(args.run)
+    if rid is None:
+        return 2
+    if args.against:
+        bid = resolve(args.against)
+        if bid is None:
+            return 2
+        baseline = reg.load(bid)
+    else:
+        baseline = _load_baseline_file(args.baseline, args.baseline_row)
+    rep, code = regress(reg.load(rid), baseline,
+                        max_span_ratio=args.max_span_ratio,
+                        min_seconds=args.min_seconds)
+    print(json.dumps(rep))
+    return code
+
+
+def _add_obs_parser(sub):
+    """``obs ls/show/diff/regress``, with the reference CLI's flags."""
+    po = sub.add_parser(
+        "obs",
+        help="query the run registry: ls (run table), show RUN, "
+             "diff A B (parity verdict + span deltas), regress "
+             "(verdict vs a prior run or a baseline file; exit "
+             "nonzero on count mismatch / span-ratio regression)")
+    osub = po.add_subparsers(dest="obs_cmd", required=True)
+
+    def _reg_flag(sp):
+        sp.add_argument("--registry", required=True, metavar="DIR",
+                        help="the registry directory earlier runs "
+                             "recorded into")
+
+    ols = osub.add_parser("ls", help="list recorded runs (newest last)")
+    _reg_flag(ols)
+    ols.add_argument("--spec", default=None,
+                     help="only runs of this spec frontend")
+    ols.add_argument("--cmd", dest="cmd_filter", default=None,
+                     help="only runs of this command (check/simulate)")
+    ols.add_argument("--status", default=None,
+                     help="only runs with this exit status "
+                          "(finished/failed)")
+    oshow = osub.add_parser(
+        "show", help="one run's full record (counters, span rollups, "
+                     "resource peaks, artifact paths) as JSON")
+    _reg_flag(oshow)
+    oshow.add_argument("run", help="run id, unique prefix, or 'last'")
+    odiff = osub.add_parser(
+        "diff", help="machine-readable diff of two runs: count/"
+                     "level-size parity verdict, per-phase span "
+                     "deltas, mode-flag drift by name; exit 1 on "
+                     "count mismatch")
+    _reg_flag(odiff)
+    odiff.add_argument("run_a", help="run id, unique prefix, or 'last'")
+    odiff.add_argument("run_b", help="run id, unique prefix, or 'last'")
+    oreg = osub.add_parser(
+        "regress", help="regression verdict of RUN against a prior "
+                        "registry run or a baseline file; exit 1 on "
+                        "regression, 2 on usage error")
+    _reg_flag(oreg)
+    oreg.add_argument("run", help="run id, unique prefix, or 'last'")
+    oreg.add_argument("--against", default=None, metavar="RUN",
+                      help="baseline = this prior registry run")
+    oreg.add_argument("--baseline", default=None, metavar="FILE",
+                      help="baseline = a JSON file: a --stats-json "
+                           "payload, a bench headline object, or an A/B "
+                           "file with a 'rows' map (then --baseline-row "
+                           "picks the row)")
+    oreg.add_argument("--baseline-row", default=None, metavar="KEY",
+                      help="row key inside the file's 'rows' map")
+    oreg.add_argument("--max-span-ratio", type=float, default=None,
+                      metavar="R",
+                      help="also fail when a shared phase's span time "
+                           "exceeds R x the baseline's (phases under "
+                           "--min-seconds in the baseline are exempt: "
+                           "wall-clock noise)")
+    oreg.add_argument("--min-seconds", type=float, default=0.05,
+                      metavar="S",
+                      help="span-ratio floor: baseline phases shorter "
+                           "than S seconds never trip (default 0.05)")
 
 
 def main(argv=None) -> int:
@@ -1000,9 +1171,10 @@ def main(argv=None) -> int:
                          "`check --seed-trace` (simulation feeds "
                          "punctuated exhaustive search)")
     _add_obs_flags(ps)
+    _add_obs_parser(sub)
     args = ap.parse_args(argv)
     return {"check": cmd_check, "trace": cmd_trace,
-            "simulate": cmd_simulate}[args.cmd](args)
+            "simulate": cmd_simulate, "obs": cmd_obs}[args.cmd](args)
 
 
 if __name__ == "__main__":

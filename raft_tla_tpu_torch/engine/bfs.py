@@ -1343,6 +1343,16 @@ class Engine:
         res.sym_canon = int(self.fpr.sym_canon == "sort")
         return res
 
+    def _load_kernels(self, obs):
+        """On the card, build (or load) the kernel library before the
+        run: its first use in a process is a compile, as the reference's
+        warm-up is, and gets the run's ``compile`` span."""
+        if self.device.type == "cuda":
+            from . import cuda_ext
+            if not cuda_ext.loaded():
+                with obs.span("compile"):
+                    cuda_ext.library()
+
     def check(self, max_depth: int = 10 ** 9, max_states: int = 10 ** 9,
               stop_on_violation: bool = False,
               seed_states: Optional[List] = None,
@@ -1379,14 +1389,7 @@ class Engine:
         if resume_from is not None and resume_image is not None:
             raise ValueError(
                 "resume_from and resume_image are mutually exclusive")
-        if self.device.type == "cuda":
-            from . import cuda_ext
-            if not cuda_ext.loaded():
-                # the kernels' first use in this process builds (or
-                # loads) the library: a compile, as the reference's
-                # warm-up is
-                with obs.span("compile"):
-                    cuda_ext.library()
+        self._load_kernels(obs)
         self._graphs = GraphRunner(self.device, self._capture, obs=obs)
         ring = None
         resumed = resume_from is not None or resume_image is not None

@@ -66,6 +66,7 @@ import torch
 
 from ..config import ModelConfig
 from ..convert import rows_to_torch, storage_to_numpy, words_to_numpy
+from ..obs import NULL_OBS
 from ..ops.codec import C_OVERFLOW
 from ..resil.chaos import chaos_point
 from ..utils import home_slots
@@ -536,7 +537,7 @@ class SpillEngine(Engine):
         keep = not seen before [N]."""
         # chaos site: a lost host partition
         chaos_point("host_table")
-        with self._span("sweep"):
+        with self._obs.span("host_sweep"), self._span("sweep"):
             return self._sweep_level_keys_impl(keys)
 
     def _upload_image(self, p: int):
@@ -560,8 +561,12 @@ class SpillEngine(Engine):
         todo = [p for p in range(self.hpt.P)
                 if p not in self._sweep_staged]
         room = self._SWEEP_STAGE_DEPTH - len(self._sweep_staged)
-        with self._span("h2d"):
-            for p in todo[:max(room, 0)]:
+        if room <= 0 or not todo:
+            return
+        # inside the level's level_dispatch span: the timeline shows the
+        # uploads overlapping the level's steps
+        with self._obs.span("h2d_stage"), self._span("h2d"):
+            for p in todo[:room]:
                 self._sweep_staged[p] = (self._upload_image(p),
                                          self.hpt.vers[p])
 
@@ -587,7 +592,10 @@ class SpillEngine(Engine):
                 grew = hpt.reserve(p, int(idx.size))
                 pre = self._sweep_staged.pop(p, None)
                 if pre is not None and not grew and pre[1] == hpt.vers[p]:
-                    staged[j] = pre[0]
+                    # the prestaged image is current: its upload already
+                    # rode the link, and the span marks the one skipped
+                    with self._obs.span("sweep_overlap"):
+                        staged[j] = pre[0]
                     self.sweep_stage_hits += 1
                 else:
                     staged[j] = self._upload_image(p)
@@ -642,38 +650,41 @@ class SpillEngine(Engine):
         level bailed and the segment driver runs it; bailed True means
         the call ended in a bail."""
         t1 = time.perf_counter()
-        KB = self._burst_width()
-        rows_cat, gids_cat = self._cat_seg(
-            [r for r, _g in frontier_blocks],
-            [g for _r, g in frontier_blocks])
-        n_front = int(gids_cat.shape[0])
-        with self._span("h2d"):
-            dev, ev = self._upload({k: v for k, v in rows_cat.items()})
-        if ev is not None:
-            torch.cuda.current_stream(self.device).wait_event(ev)
-        for k, v in ring.fr.items():
-            v.zero_()
-            v[..., :n_front] = dev[k]
-        ring.fm.zero_()
-        ring.fm[:n_front] = True
-        ring.gd.fill_(-1)
-        ring.gd[:n_front] = torch.from_numpy(
-            gids_cat.astype(np.int64)).to(self.device)
-        ring.nf.fill_(n_front)
-        ring.g.fill_(n_states)
-        ring.pg.zero_()
-        self._grow_table_if_needed(st, n_vis,
-                                   min_add=self.burst_levels * KB)
-        lv_left = min(self.burst_levels, max_depth - depth)
-        st_cap = max(1, min(max_states - res.distinct_states, 2 ** 31 - 1))
-        meta, stats = self._burst_loop(st, ring, lv_left, st_cap, n_front)
+        with self._obs.span("burst_dispatch"):
+            KB = self._burst_width()
+            rows_cat, gids_cat = self._cat_seg(
+                [r for r, _g in frontier_blocks],
+                [g for _r, g in frontier_blocks])
+            n_front = int(gids_cat.shape[0])
+            with self._span("h2d"):
+                dev, ev = self._upload({k: v for k, v in rows_cat.items()})
+            if ev is not None:
+                torch.cuda.current_stream(self.device).wait_event(ev)
+            for k, v in ring.fr.items():
+                v.zero_()
+                v[..., :n_front] = dev[k]
+            ring.fm.zero_()
+            ring.fm[:n_front] = True
+            ring.gd.fill_(-1)
+            ring.gd[:n_front] = torch.from_numpy(
+                gids_cat.astype(np.int64)).to(self.device)
+            ring.nf.fill_(n_front)
+            ring.g.fill_(n_states)
+            ring.pg.zero_()
+            self._grow_table_if_needed(st, n_vis,
+                                       min_add=self.burst_levels * KB)
+            lv_left = min(self.burst_levels, max_depth - depth)
+            st_cap = max(1, min(max_states - res.distinct_states,
+                                2 ** 31 - 1))
+            meta, stats = self._burst_loop(st, ring, lv_left, st_cap,
+                                           n_front)
         nlev, bailed = meta[0], bool(meta[1])
         res.burst_dispatches += 1
         res.burst_bailouts += int(bailed)
         if nlev == 0:
             return (frontier_blocks, depth, n_states, n_vis, False,
                     bailed)
-        with self._span("harvest"):
+        with self._obs.span("harvest"), self._span("harvest"):
             arch = None
             if self.store_states or meta[3]:
                 arch = (ring.opar.cpu().numpy(), ring.olane.cpu().numpy(),
@@ -711,6 +722,8 @@ class SpillEngine(Engine):
                          for k, v in ring.fr.items()}, self.ir.u32_keys)
                     g = ring.gd.index_select(0, keep).to(torch.int32)
                     frontier_blocks = [(fr_h, g.cpu().numpy())]
+        self._obs.dispatch(kind="burst", depth=depth, frontier=nf,
+                           metrics=res.metrics.as_dict())
         if verbose:
             print(f"burst: {nlev} levels to depth {depth} "
                   f"(total {res.distinct_states}), frontier "
@@ -731,14 +744,26 @@ class SpillEngine(Engine):
         """``resume_image`` — a ``resil.portable.PortableImage`` from any
         engine family's checkpoint: the visited key set rebuilds this
         engine's table (and host partitions) and the frontier rows
-        become one spill block.  ``obs`` is accepted and not used."""
+        become one spill block.
+
+        obs — an ``obs.Obs`` bundle: one ledger record and heartbeat
+        rewrite per burst and per level, written once the level's
+        sweep, reseed and checkpoint are done, and the reference's
+        spans on the host: ``compile`` (each graph's warm-up and
+        capture, and the kernels' first-use build), ``burst_dispatch``,
+        ``level_dispatch`` (with ``h2d_stage`` inside it),
+        ``harvest``, ``host_sweep``, ``sweep_overlap``,
+        ``archive_io``, ``checkpoint``.  They sit beside the engine's
+        own ``host_seconds`` kinds, which keep their names."""
+        obs = self._obs = obs if obs is not None else NULL_OBS
         t0 = time.perf_counter()
         lay = self.lay
         if resume_from is not None and resume_image is not None:
             raise ValueError(
                 "resume_from and resume_image are mutually exclusive")
         self._reset_counters()
-        self._graphs = GraphRunner(self.device, self._capture)
+        self._load_kernels(obs)
+        self._graphs = GraphRunner(self.device, self._capture, obs=obs)
         self.hard_stats = [0, 0, 0]
         frontier_keys: List[np.ndarray] = []   # host-table mode only
         root_blk = None
@@ -843,7 +868,7 @@ class SpillEngine(Engine):
             parts = self._lvl_parts[-1]
             if not parts:
                 return
-            with self._span("harvest"):
+            with obs.span("archive_io"), self._span("harvest"):
                 if self._arch is not None:
                     self._arch.append_level_parts(parts)
                 else:
@@ -942,81 +967,87 @@ class SpillEngine(Engine):
 
             def drain_blks():
                 nonlocal pending_blks
-                for blk in pending_blks:
-                    blk = self._materialize_blk(blk)
-                    if self.host_table:
-                        # harvest waits for the level-end sweep
-                        level_blks.append(blk)
-                        continue
-                    with self._span("harvest"):
-                        out = harvest_block(blk)
-                    if out is not None:
-                        next_blocks.append(out[:2])
+                if not pending_blks:
+                    return
+                with obs.span("harvest"):
+                    for blk in pending_blks:
+                        blk = self._materialize_blk(blk)
+                        if self.host_table:
+                            # harvest waits for the level-end sweep
+                            level_blks.append(blk)
+                            continue
+                        with self._span("harvest"):
+                            out = harvest_block(blk)
+                        if out is not None:
+                            next_blocks.append(out[:2])
                 pending_blks = []
 
-            if self.host_table:
-                self._stage_sweep_images()
-            seg_iter = self._resegment(frontier_blocks, self.SEGF)
-            staged = next(seg_iter, None)
-            staged_dev = (self._stage_segment(*staged)
-                          if staged is not None else None)
-            while staged_dev is not None:
-                self._grow_table_if_needed(st, n_vis)
-                n_seg = self._swap_in_segment(st, staged_dev)
+            with obs.span("level_dispatch"):
+                # the sweep's first images upload during the level: the
+                # h2d_stage span nests inside this one
+                if self.host_table:
+                    self._stage_sweep_images()
+                seg_iter = self._resegment(frontier_blocks, self.SEGF)
                 staged = next(seg_iter, None)
-                # the next segment's upload rides while this one runs
                 staged_dev = (self._stage_segment(*staged)
                               if staged is not None else None)
-                n_chunks = (n_seg + self.chunk - 1) // self.chunk
-                k = 0
-                inflight = None
-                while k < n_chunks or inflight is not None:
-                    cur = None
-                    if k < n_chunks:
-                        win_end = min(k + self.sync_every, n_chunks)
-                        while k < win_end:
-                            self._run_step(st)
-                            k += 1
-                        cur = self._read_summary(st)
-                    if inflight is not None:
-                        with self._span("sync"):
-                            s = inflight()          # one window late
-                        self.summary_syncs += 1
-                        # the margin covers the window dispatched above
-                        spill_floor = self.SEGL - self.OCAP * (
-                            2 * self.sync_every + 3)
-                        tripped = s[S_OVF] or s[S_FOVF] or s[S_HOVF] or \
-                            s[S_OOVF] or s[-2]
-                        if tripped or int(s[S_NLVL]) >= spill_floor:
-                            if cur is not None:
-                                # the window in flight has the freshest
-                                # flags (its chunks after a trip are
-                                # no-ops)
-                                with self._span("sync"):
-                                    s = cur()
-                                self.summary_syncs += 1
-                                cur = None
-                            if s[S_OVF] or s[S_FOVF] or s[S_HOVF] or \
-                                    s[S_OOVF] or s[-2]:
-                                drain_blks()
-                                blk, k = self._handle_trip(st, s, verbose)
-                                settle_blk(blk)
-                            else:
-                                drain_blks()
-                                settle_blk(self._spill_segment(
-                                    st, int(s[S_NLVL])))
-                            # n_vis moved: a dense segment can spill
-                            # several SEGL's worth of keys before the
-                            # next segment boundary
-                            self._grow_table_if_needed(st, n_vis)
-                    inflight = cur
-                drain_gen()
-                # the rows stay on the device across frontier segments
-                # until the floor trips or the level ends
+                while staged_dev is not None:
+                    self._grow_table_if_needed(st, n_vis)
+                    n_seg = self._swap_in_segment(st, staged_dev)
+                    staged = next(seg_iter, None)
+                    # the next segment's upload rides while this one runs
+                    staged_dev = (self._stage_segment(*staged)
+                                  if staged is not None else None)
+                    n_chunks = (n_seg + self.chunk - 1) // self.chunk
+                    k = 0
+                    inflight = None
+                    while k < n_chunks or inflight is not None:
+                        cur = None
+                        if k < n_chunks:
+                            win_end = min(k + self.sync_every, n_chunks)
+                            while k < win_end:
+                                self._run_step(st)
+                                k += 1
+                            cur = self._read_summary(st)
+                        if inflight is not None:
+                            with self._span("sync"):
+                                s = inflight()          # one window late
+                            self.summary_syncs += 1
+                            # the margin covers the window dispatched above
+                            spill_floor = self.SEGL - self.OCAP * (
+                                2 * self.sync_every + 3)
+                            tripped = s[S_OVF] or s[S_FOVF] or s[S_HOVF] or \
+                                s[S_OOVF] or s[-2]
+                            if tripped or int(s[S_NLVL]) >= spill_floor:
+                                if cur is not None:
+                                    # the window in flight has the freshest
+                                    # flags (its chunks after a trip are
+                                    # no-ops)
+                                    with self._span("sync"):
+                                        s = cur()
+                                    self.summary_syncs += 1
+                                    cur = None
+                                if s[S_OVF] or s[S_FOVF] or s[S_HOVF] or \
+                                        s[S_OOVF] or s[-2]:
+                                    drain_blks()
+                                    blk, k = self._handle_trip(st, s, verbose)
+                                    settle_blk(blk)
+                                else:
+                                    drain_blks()
+                                    settle_blk(self._spill_segment(
+                                        st, int(s[S_NLVL])))
+                                # n_vis moved: a dense segment can spill
+                                # several SEGL's worth of keys before the
+                                # next segment boundary
+                                self._grow_table_if_needed(st, n_vis)
+                        inflight = cur
+                    drain_gen()
+                    # the rows stay on the device across frontier segments
+                    # until the floor trips or the level ends
 
-            # level end: spill the remainder
-            settle_blk(self._spill_segment(st, int(st.n_lvl)))
-            drain_gen()
+                # level end: spill the remainder
+                settle_blk(self._spill_segment(st, int(st.n_lvl)))
+                drain_gen()
             drain_blks()
             if self.host_table and level_blks:
                 # the level's keys (unique, in enumeration order) meet
@@ -1025,7 +1056,7 @@ class SpillEngine(Engine):
                 lkeys = np.concatenate(
                     [np.ascontiguousarray(b["lfp"].T) for b in level_blks])
                 lkeep = self._sweep_level_keys(lkeys)
-                with self._span("harvest"):
+                with obs.span("harvest"), self._span("harvest"):
                     off = 0
                     for b in level_blks:
                         nb = b["n"]
@@ -1052,6 +1083,12 @@ class SpillEngine(Engine):
             if checkpoint_path is not None and \
                     driver.ckpt_due_at_level(depth, checkpoint_every):
                 save()
+            # the level's row carries its final counters: written after
+            # its drain, sweep, reseed and checkpoint
+            obs.dispatch(kind="level", depth=depth,
+                         frontier=sum(int(g.shape[0])
+                                      for _r, g in frontier_blocks),
+                         metrics=res.metrics.as_dict())
             if verbose:
                 print(f"depth {depth}: +{level_new} states "
                       f"(total {res.distinct_states}), frontier "
@@ -1076,7 +1113,7 @@ class SpillEngine(Engine):
 
     def _save_spill_checkpoint(self, path, st, res, frontier_blocks,
                                frontier_keys, depth, n_states, n_vis):
-        with self._span("checkpoint"):
+        with self._obs.span("checkpoint"), self._span("checkpoint"):
             self._save_spill_checkpoint_impl(
                 path, st, res, frontier_blocks, frontier_keys, depth,
                 n_states, n_vis)

@@ -1,5 +1,6 @@
 """Observability bundle for the engines (the reference's
-``raft_tla_tpu/obs/``; its query half, ``report.py``, is not here).
+``raft_tla_tpu/obs/``; its query half, ``report.py``, serves ``cli
+obs``).
 
 One ``Obs`` bundle rides through a run and fans out to its sinks, each
 optional:
@@ -27,9 +28,10 @@ Every bundle with a file sink carries a **run id**, stamped into every
 ledger row, the heartbeat and the registry record, and a **resource
 sampler** (`obs/resources.py`) fed at every dispatch.
 
-Engines take ``obs=None`` in ``check()`` and default to ``NULL_OBS``
-(every hook a no-op); the CLI builds a real bundle from the flags via
-``from_flags`` and owns its lifecycle (``start``/``finish``).  The
+Engines take ``obs=None`` in ``check()`` (the walker in ``run()``) and
+default to ``NULL_OBS`` (every hook a no-op); the CLI builds a real
+bundle from the flags via ``from_flags`` and owns its lifecycle
+(``start``/``finish``).  The
 counters themselves live in ``obs/metrics.py``'s registry.  Nothing
 here touches CUDA, starts a profiler or opens a file at import.
 """

@@ -68,6 +68,7 @@ from ..engine.expand import Expander
 from ..engine.fingerprint import (bloom_estimate, bloom_positions,
                                   resolve_sym_canon)
 from ..engine.graph import GraphRunner
+from ..obs import NULL_OBS
 from ..ops.kernels import select_enabled
 from ..spec import spec_of
 from ..utils import prng, resolve_device
@@ -222,6 +223,7 @@ class SimEngine:
             self.device, self.ir.u32_keys)
         self._cols = torch.arange(self.W, device=self.device)
         self._capture = True
+        self._obs = NULL_OBS           # the bundle of the run under way
         self._graphs = GraphRunner(self.device, False)
         self._bound = None
 
@@ -440,7 +442,8 @@ class SimEngine:
                  if not isinstance(st[k], dict)] + \
             [v.data_ptr() for k in ("sv", "base") for v in st[k].values()]
         if bound != self._bound:
-            self._graphs = GraphRunner(self.device, self._capture)
+            self._graphs = GraphRunner(self.device, self._capture,
+                                       obs=self._obs)
             self._bound = bound
         for _ in range(int(steps)):
             self._graphs.run(("step", bool(stop_on_hit)),
@@ -458,10 +461,19 @@ class SimEngine:
     # ------------------------------------------------------------------
 
     def run(self, steps: int, steps_per_dispatch: int = 256,
-            stop_on_hit: bool = True, verbose: bool = False) -> SimResult:
+            stop_on_hit: bool = True, verbose: bool = False,
+            obs=None) -> SimResult:
         """Walk for up to ``steps`` synchronous fleet steps (ending at
         the first scenario or invariant hit when stop_on_hit); the host
-        reads the stats vector once per dispatch."""
+        reads the stats vector once per dispatch.
+
+        obs — an ``obs.Obs`` bundle: one ``sim_dispatch`` span (the
+        dispatch and its stats read), one ledger record and one
+        heartbeat rewrite per dispatch (the heartbeat's ``depth`` is the
+        fleet's step count: a random walk has no BFS depth), and a
+        ``compile`` span per graph capture on the card."""
+        obs = self._obs = obs if obs is not None else NULL_OBS
+        self._graphs.obs = obs
         t0 = time.perf_counter()
         # the steps check sampled successors; the root is checked once
         # here (a safety-invariant target can fail at depth 0)
@@ -475,9 +487,17 @@ class SimEngine:
         done = 0
         while done < steps:
             k = min(steps_per_dispatch, steps - done)
-            self._dispatch(st, k, stop_on_hit)
-            stats = st["stats"].cpu().numpy()   # the one read per dispatch
+            with obs.span("sim_dispatch"):
+                self._dispatch(st, k, stop_on_hit)
+                stats = st["stats"].cpu().numpy()   # the one read
             done = int(stats[ST_ITERS])
+            if obs.enabled:
+                # the counters known without a Bloom read (key set
+                # obs.metrics.SIM_DISPATCH_KEYS)
+                obs.dispatch(kind="sim", depth=done, frontier=self.W,
+                             states=int(stats[ST_STEPS]),
+                             metrics=dispatch_counters(stats[None],
+                                                       self.W))
             if verbose:
                 print(f"sim: {done} iters, {int(stats[ST_STEPS])} "
                       f"walker-steps, {int(stats[ST_RESTARTS])} "

@@ -196,3 +196,38 @@ def test_obs_modules_import_without_jax_and_do_no_work():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_obs_report_imports_without_jax_and_does_no_work():
+    """``obs/report.py`` (the query half behind ``cli obs``) and the
+    modules its slice changed import with JAX and the JAX package
+    blocked, the package walk reaches it, and importing it loads no
+    torch, opens no file and starts no profiler: ``cli obs`` answers
+    without the engines."""
+    code = textwrap.dedent("""
+        import os, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        fds = len(os.listdir("/proc/self/fd"))
+        import raft_tla_tpu_torch.obs.report as report
+        assert "torch" not in sys.modules
+        assert len(os.listdir("/proc/self/fd")) == fds
+        assert report.diff_runs({"depth": 1}, {"depth": 1})[
+            "verdict"] == "clean"
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        assert "raft_tla_tpu_torch.obs.report" in names
+        for n in ("cli", "engine.spill", "sim.walker"):
+            __import__("raft_tla_tpu_torch." + n)
+        import torch
+        assert not torch.cuda.is_initialized()
+        from torch.autograd.profiler import _is_profiler_enabled
+        assert not _is_profiler_enabled
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -5,8 +5,9 @@ the same ledger kinds, keys and counters and registry records with the
 same keys; the reference's own ``RunRegistry``, ``cli obs show/ls`` and
 ``tools/watch.py`` read the port's record, heartbeat and ledger;
 ``--profile-dir`` writes a ``torch.profiler`` trace that holds the span
-names; a failed run ends ``failed``; and the flags the port does not
-serve yet (``check --spill``, ``simulate``) exit 2 naming the flag.
+names; a failed run ends ``failed``; ``check --spill`` and ``simulate``
+write the sink each flag names; and ``--pjit`` is still refused by
+name.
 """
 
 import glob
@@ -165,23 +166,68 @@ def test_a_failed_run_ends_failed(cfgs, tmp_path, capsys):  # noqa: F811
     assert [json.loads(x)["kind"] for x in open(s["ledger"])] == ["meta"]
 
 
-@pytest.mark.parametrize("argv, flag", [
-    (["check", "--spill", "--seg", "1024", "--ledger", "L"], "--ledger"),
-    (["check", "--spill", "--heartbeat", "H", "--registry", "R"],
-     "--heartbeat, --registry"),
-    (["check", "--spill", "--profile-dir", "P"], "--profile-dir"),
-    (["simulate", "--target", "FirstCommit", "--ledger", "L"], "--ledger"),
+@pytest.mark.parametrize("argv, sinks", [
+    (["check", "--spill", "--seg", "1024", "--ledger", "L"], "L"),
+    (["check", "--spill", "--heartbeat", "H", "--registry", "R"], "HR"),
+    (["check", "--spill", "--profile-dir", "P"], "P"),
+    (["simulate", "--target", "FirstCommit", "--ledger", "L"], "L"),
     (["simulate", "--target", "FirstCommit", "--trace-timeline", "T"],
-     "--trace-timeline")])
-def test_flags_not_ported_yet_exit_2(cfgs, tmp_path, capsys, argv,
-                                     flag):  # noqa: F811
+     "T")])
+def test_spill_and_simulate_write_each_flag_sink(cfgs, tmp_path, capsys,
+                                                 argv, sinks):  # noqa: F811
+    """The spill engine and the random-walk engine serve every flag: each
+    sink a flag names is written and parses, and the run exits 0."""
     from raft_tla_tpu_torch.cli import main
-    argv = [str(tmp_path / a) if a in ("L", "H", "R", "P", "T") else a
-            for a in argv]
-    rc, out, err = _run(main, argv[:1] + [cfgs[0], "--device", "cpu"] +
-                        argv[1:] + FLAGS, capsys)
+    path = {a: str(tmp_path / a) for a in ("L", "H", "R", "P", "T")}
+    argv = [path.get(a, a) for a in argv]
+    extra = ["--max-depth", "6"] if argv[0] == "check" else \
+        ["--walkers", "8", "--max-depth", "16", "--seed", "1",
+         "--bloom-bits", "12", "--steps-per-dispatch", "32",
+         "--steps", "400"]
+    rc, out, _err = _run(main, argv[:1] + [cfgs[0], "--device", "cpu"] +
+                         argv[1:] + extra + FLAGS, capsys)
+    assert rc == 0, out
+    stats = json.loads(out.partition("\n")[0])
+    depth = stats["depth" if argv[0] == "check" else "steps_dispatched"]
+    kind = "sim" if argv[0] == "simulate" else "level"
+    assert sorted(os.listdir(tmp_path)) == sorted(sinks)
+    if "L" in sinks:
+        rows = [json.loads(x) for x in open(path["L"])]
+        assert rows[0]["kind"] == "meta" and rows[0]["cmd"] == argv[0]
+        assert rows[-1]["kind"] in (kind, "burst")
+        assert rows[-1]["depth"] == depth
+    if "H" in sinks:
+        hb = json.load(open(path["H"]))
+        assert (hb["status"], hb["depth"]) == ("finished", depth)
+    if "R" in sinks:
+        (rec,) = [json.load(open(p)) for p in
+                  glob.glob(path["R"] + "/*.json")]
+        assert (rec["cmd"], rec["status"], rec["depth"]) == \
+            (argv[0], "finished", depth)
+        assert rec["counters"]["distinct_states"] == \
+            stats["distinct_states"]
+        assert {"burst_dispatch", "harvest"} <= set(rec["spans"])
+    if "P" in sinks:
+        (trace,) = os.listdir(path["P"])
+        events = json.load(open(os.path.join(path["P"], trace)))[
+            "traceEvents"]
+        assert "burst_dispatch" in {e.get("name") for e in events
+                                    if e.get("cat") == "user_annotation"}
+    if "T" in sinks:
+        tl = json.load(open(path["T"]))
+        assert {e["name"] for e in tl} == {"sim_dispatch"}
+        assert len(tl) == -(-depth // 32)
+
+
+def test_pjit_with_an_obs_flag_is_still_refused_by_name(
+        cfgs, tmp_path, capsys):  # noqa: F811
+    from raft_tla_tpu_torch.cli import main
+    rc, out, err = _run(main, ["check", cfgs[0], "--device", "cpu",
+                               "--pjit", "--ledger",
+                               str(tmp_path / "l.jsonl")] + FLAGS, capsys)
     assert rc == 2 and out == ""
-    assert f"{flag} " in err and "not ported to this package yet" in err
+    assert err.startswith("--pjit (the pod-scale pjit engine) is not "
+                          "ported to this package")
     assert not os.listdir(tmp_path)      # no sink was opened
 
 

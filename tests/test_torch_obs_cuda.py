@@ -3,7 +3,9 @@ elsewhere): the CUDA allocator's gauges and the backend fingerprint,
 one ``compile`` span per graph capture (plus one for a first-use build
 of the kernel library) with device memory on every dispatch row, and a
 ``--profile-dir`` trace that holds the hand dedup kernel by name under
-the span-named ``record_function`` ranges.  On the card run
+the span-named ``record_function`` ranges; the same ``compile`` count on
+the spill engine (plain and with the host table) and on the walker,
+whose ledger rows equal the CPU's.  On the card run
 
     python -m pytest tests/test_torch_obs_cuda.py -m cuda --noconftest
 """
@@ -91,3 +93,64 @@ def test_profiler_trace_holds_the_dedup_kernel(cuda, tmp_path):
     names = {e.get("name") for e in events
              if e.get("cat") in ("user_annotation", "gpu_user_annotation")}
     assert {"compile", "burst_dispatch", "harvest"} <= names
+
+
+SPILL = dict(chunk=64, seg=1 << 10, vcap=1 << 12, sync_every=2)
+
+
+# the spill engine's captured chunk step on every level: without the
+# burst, and under the host table (which never bursts)
+@pytest.mark.parametrize("mode", [dict(burst=False), dict(
+    host_table=True, partitions=4, sweep_stage=True)])
+def test_spill_compile_spans_count_the_captures(cuda, tmp_path, mode):
+    from raft_tla_tpu_torch.engine import cuda_ext
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    built = not cuda_ext.loaded()
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        led = str(tmp_path / f"{dev}.jsonl")
+        obs = Obs(spans=SpanRecorder(), ledger=RunLedger(led),
+                  device=dev).start()
+        eng = SpillEngine(MICRO, **SPILL, **mode, device=dev)
+        r = eng.check(obs=obs, max_depth=12)
+        obs.finish(depth=r.depth, states=r.distinct_states)
+        rows[dev] = [{k: v for k, v in x.items() if k in (
+            "kind", "depth", "frontier", "distinct_states",
+            "generated_states", "levels_fused", "burst_dispatches")}
+            for x in map(json.loads, open(led))
+            if x["kind"] in ("level", "burst")]
+        if dev == "cuda":
+            tot = obs.spans.totals()
+            assert eng._graphs.captures > 0
+            assert tot["compile"]["count"] == \
+                eng._graphs.captures + int(built)
+            assert tot["level_dispatch"]["count"] == sum(
+                x["kind"] == "level" for x in rows[dev])
+    assert rows["cuda"] == rows["cpu"]
+
+
+def test_walker_compile_spans_count_the_captures(cuda, tmp_path):
+    from raft_tla_tpu_torch.sim import SimEngine
+    cfg = MICRO.with_(invariants=("FirstCommit",))
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        led = str(tmp_path / f"{dev}.jsonl")
+        obs = Obs(spans=SpanRecorder(), ledger=RunLedger(led),
+                  device=dev).start()
+        eng = SimEngine(cfg, walkers=8, max_depth=16, seed=1,
+                        bloom_bits=12, device=dev)
+        r = eng.run(steps=400, steps_per_dispatch=8, obs=obs)
+        obs.finish(depth=r.steps_dispatched, states=r.walker_steps)
+        rows[dev] = [{k: v for k, v in x.items() if k in (
+            "kind", "depth", "frontier", "walker_steps", "hits",
+            "steps_dispatched", "restarts", "sampled_steps")}
+            for x in map(json.loads, open(led)) if x["kind"] == "sim"]
+        tot = obs.spans.totals()
+        assert tot["sim_dispatch"]["count"] == len(rows[dev])
+        if dev == "cuda":
+            assert eng._graphs.captures > 0
+            assert tot["compile"]["count"] == eng._graphs.captures
+        else:
+            assert "compile" not in tot
+    # the card replays the gated steps after the hit: the rows agree
+    assert rows["cuda"] == rows["cpu"] and rows["cpu"][-1]["hits"] >= 1
