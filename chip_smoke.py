@@ -175,9 +175,31 @@ Phases (any failure exits non-zero before the final line):
      median in-graph kernel time is printed beside fixture (h)'s eager
      time and bound.  Its measures are one JSON line before the kernel
      line.
+ 18. batched serving, through ``batch`` in this process: (a) 33 jobs
+     (``BATCH_JOBS``: raft at 3 servers under MaxTimeouts, MaxTerms and
+     MaxClientRequests from 1 to 3, one padded bucket per invariant
+     set; paxos at 3 acceptors over ballots and values) in at least 4
+     waves of at most 8 must give every job's distinct and generated
+     states, depth, level sizes, violations and witness labels as the
+     reference's solo runs (``BATCH_PINS``), the two ``big-`` jobs as
+     labelled solo fallbacks, the dedup kernel once per job slot in
+     each captured job-axis step; ``--sequential`` on four of them the
+     same reports but the timing keys; (b) the same file against the
+     filled ``--cache-dir``: every job a cache hit, 0 batched
+     dispatches; (c) ``--wave-yield 1 --wave-state D --chaos
+     wave_kill:at=2`` exits 3, and the same command without the chaos
+     resumes jobs from the wave state with 18a's reports; (d) fixture
+     (i): the dedup kernel at the bucket's shapes (eight 2^15 tables at
+     35%, M 8,192) against the twin, timed back to back beside its
+     bound; and the device's idle share over 18a's first wave, re-run
+     under ``torch.profiler``;
+ 19. BASELINE config #4 (the apalache variant) to depth 10 against
+     baseline_runs/config4.json, and the ``LeaderCompleteness_false``
+     hunt from the ConcurrentLeaders witness, its witness replayed by
+     the oracle and equal to the oracle's own.
 
-``python3 chip_smoke.py --phase 15`` (or ``--phase 16``, ``--phase 17``)
-runs phases 1, 2 and 15 (or 16, 17) alone and prints no result line.
+``python3 chip_smoke.py --phase 15`` (or 16, 17, 18, 19) runs phases 1,
+2 and that phase alone and prints no result line.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -404,6 +426,169 @@ PAXOS_SIM_ARGV = ["simulate", "--spec", "paxos", "--target", "Preempted",
 HBM_BYTES_PER_S = 3.35e12
 # about 1 ms of device sleep at the H100's 1.98 GHz boost clock
 SLEEP_CYCLES = 2_000_000
+
+# Phase 18: the batched serving sweep (``batch``).  Raft jobs on the tlc
+# cfg at 3 servers under MaxTimeouts/MaxTerms/MaxClientRequests between
+# 1 and 3 (one padded bucket per invariant set), paxos jobs over ballots
+# and values at 3 acceptors, depth gates from the reference's level
+# sizes so that every job but the two "big-" ones fits the bucket's ring
+# (512 rows a level) and its 2^15-slot table.
+BATCH_CFG = "configs/tlc_membership/raft.cfg"
+
+
+def _batch_raft(label, mt, terms, mcr, depth=None, inv=None, store=True):
+    o = {"spec": "raft", "config": BATCH_CFG, "label": label,
+         "overrides": {"bounds": {"max_log_length": 2, "max_timeouts": mt,
+                                  "max_terms": terms,
+                                  "max_client_requests": mcr}}}
+    if inv:
+        o["overrides"]["invariants"] = inv
+    if depth is not None:
+        o["max_depth"] = depth
+    if not store:
+        o["store"] = False
+    return o
+
+
+def _batch_paxos(label, b, v, depth=None, inv=None):
+    c = {"acceptors": 3, "ballots": b, "values": v}
+    if inv:
+        c["invariants"] = inv
+    o = {"spec": "paxos", "config": c, "label": label}
+    if depth is not None:
+        o["max_depth"] = depth
+    return o
+
+
+BATCH_JOBS = [
+    _batch_raft("r121d10", 1, 2, 1, 10), _batch_raft("r121d11", 1, 2, 1, 11),
+    _batch_raft("r122d11", 1, 2, 2, 11), _batch_raft("r123d11", 1, 2, 3, 11),
+    _batch_raft("r231d11", 2, 3, 1, 11), _batch_raft("r331d10", 3, 3, 1, 10),
+    _batch_raft("r222d11", 2, 2, 2, 11), _batch_raft("r113d5", 1, 1, 3, 5),
+    _batch_raft("r232d11", 2, 3, 2, 11, store=False),
+    _batch_raft("r333d10", 3, 3, 3, 10), _batch_raft("r131d11", 1, 3, 1, 11),
+    _batch_raft("r211d6", 2, 1, 1, 6), _batch_raft("r322d11", 3, 2, 2, 11),
+    _batch_raft("r122d9", 1, 2, 2, 9, store=False),
+    _batch_raft("r233d10", 2, 3, 3, 10), _batch_raft("r321d8", 3, 2, 1, 8),
+    _batch_raft("r221d7", 2, 2, 1, 7), _batch_raft("r332d9", 3, 3, 2, 9),
+    _batch_raft("big-r122d14", 1, 2, 2, 14),
+    _batch_raft("big-r231d13", 2, 3, 1, 13),
+    _batch_raft("fbl-r121", 1, 2, 1, None, ["FirstBecomeLeader"]),
+    _batch_raft("fbl-r232", 2, 3, 2, None, ["FirstBecomeLeader"]),
+    _batch_raft("fbl-r331", 3, 3, 1, None, ["FirstBecomeLeader"]),
+    _batch_paxos("p11", 1, 1), _batch_paxos("p12", 1, 2),
+    _batch_paxos("p21", 2, 1), _batch_paxos("p22d8", 2, 2, 8),
+    _batch_paxos("p22", 2, 2), _batch_paxos("p21d5", 2, 1, 5),
+    _batch_paxos("p12d3", 1, 2, 3), _batch_paxos("p22d12", 2, 2, 12),
+    _batch_paxos("vc-p22", 2, 2, None, ["ValueChosen"]),
+    _batch_paxos("vc-p12", 1, 2, None, ["ValueChosen"]),
+]
+BATCH_FALLBACK = ("big-r122d14", "big-r231d13")
+# four jobs that also run through ``batch --sequential``: each runs 5
+# to 8 levels, and its depth gate fits one burst dispatch of either
+# engine (a bucket fuses 8 levels), so every report key but the timing
+# keys is the same
+BATCH_SEQUENTIAL = ("r321d8", "r221d7", "p22d8", "p21d5")
+BATCH_TIMING = ("seconds", "states_per_sec", "wait_s", "service_s")
+# Each phase-18 job's answer from the JAX package's solo Engine on the
+# CPU (raft_tla_tpu.engine.bfs.Engine(job.cfg, store_states=...).check
+# with the job's gates, the report built by its serve/batch
+# _build_report): label -> (distinct, generated, depth, level sizes,
+# violations, [(invariant, state id, witness labels or None)]).
+BATCH_PINS = {
+    "r121d10": (1008, 1854, 10, [1, 2, 4, 7, 12, 19, 28, 40, 57, 84], 0, []),
+    "r121d11": (1492, 2788, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 84, 150], 0,
+        []),
+    "r122d11": (1492, 2788, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 84, 154], 0,
+        []),
+    "r123d11": (1492, 2788, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 84, 154], 0,
+        []),
+    "r231d11": (1498, 2801, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 85, 163], 0,
+        []),
+    "r331d10": (1008, 1854, 10, [1, 2, 4, 7, 12, 19, 28, 40, 57, 85], 0, []),
+    "r222d11": (1492, 2788, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 84, 154], 0,
+        []),
+    "r113d5": (2, 7, 1, [0], 0, []),
+    "r232d11": (1498, 2801, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 85, 167], 0,
+        []),
+    "r333d10": (1008, 1854, 10, [1, 2, 4, 7, 12, 19, 28, 40, 57, 85], 0, []),
+    "r131d11": (1498, 2801, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 85, 163], 0,
+        []),
+    "r211d6": (2, 7, 1, [0], 0, []),
+    "r322d11": (1492, 2788, 11, [1, 2, 4, 7, 12, 19, 28, 40, 57, 84, 154], 0,
+        []),
+    "r122d9": (681, 1226, 9, [1, 2, 4, 7, 12, 19, 28, 40, 57], 0, []),
+    "r233d10": (1008, 1854, 10, [1, 2, 4, 7, 12, 19, 28, 40, 57, 85], 0, []),
+    "r321d8": (445, 787, 8, [1, 2, 4, 7, 12, 19, 28, 40], 0, []),
+    "r221d7": (278, 483, 7, [1, 2, 4, 7, 12, 19, 28], 0, []),
+    "r332d9": (681, 1226, 9, [1, 2, 4, 7, 12, 19, 28, 40, 57], 0, []),
+    "big-r122d14": (11689, 24101, 14, [1, 2, 4, 7, 12, 19, 28, 40, 57, 84,
+        154, 397, 1252, 4091], 0, []),
+    "big-r231d13": (5127, 10096, 13, [1, 2, 4, 7, 12, 19, 28, 40, 57, 85, 163,
+        455, 1566], 0, []),
+    "fbl-r121": (681, 1226, 9, [1, 2, 4, 7, 12, 19, 28, 40, 57], 1,
+        [('FirstBecomeLeader', 594, ['Init', 'Timeout(0)', 'RequestVote(0,0)',
+        'RequestVote(0,1)', 'UpdateTerm[slot1]', 'Receive[slot0]',
+        'Receive[slot0]', 'Receive[slot1]', 'Receive[slot0]',
+        'BecomeLeader(0)'])]),
+    "fbl-r232": (681, 1226, 9, [1, 2, 4, 7, 12, 19, 28, 40, 57], 1,
+        [('FirstBecomeLeader', 594, ['Init', 'Timeout(0)', 'RequestVote(0,0)',
+        'RequestVote(0,1)', 'UpdateTerm[slot1]', 'Receive[slot0]',
+        'Receive[slot0]', 'Receive[slot1]', 'Receive[slot0]',
+        'BecomeLeader(0)'])]),
+    "fbl-r331": (681, 1226, 9, [1, 2, 4, 7, 12, 19, 28, 40, 57], 1,
+        [('FirstBecomeLeader', 594, ['Init', 'Timeout(0)', 'RequestVote(0,0)',
+        'RequestVote(0,1)', 'UpdateTerm[slot1]', 'Receive[slot0]',
+        'Receive[slot0]', 'Receive[slot1]', 'Receive[slot0]',
+        'BecomeLeader(0)'])]),
+    "p11": (15, 43, 9, [1, 1, 1, 2, 3, 3, 2, 1, 0], 0, []),
+    "p12": (25, 78, 9, [1, 1, 1, 3, 6, 6, 4, 2, 0], 0, []),
+    "p21": (373, 1404, 17, [2, 3, 4, 8, 14, 20, 28, 37, 42, 49, 58, 54, 34,
+        14, 4, 1, 0], 0, []),
+    "p22d8": (209, 590, 8, [2, 3, 4, 10, 22, 36, 54, 77], 0, []),
+    "p22": (857, 3328, 17, [2, 3, 4, 10, 22, 36, 54, 77, 102, 134, 156, 136,
+        80, 30, 8, 2, 0], 0, []),
+    "p21d5": (32, 67, 5, [2, 3, 4, 8, 14], 0, []),
+    "p12d3": (4, 7, 3, [1, 1, 1], 0, []),
+    "p22d12": (737, 2474, 12, [2, 3, 4, 10, 22, 36, 54, 77, 102, 134, 156,
+        136], 0, []),
+    "vc-p22": (78, 182, 6, [2, 3, 4, 10, 22, 36], 8, [('ValueChosen', 68,
+        ['Init', 'Phase1a(0,0)', 'Phase1b(0,0,0)', 'Phase1b(0,1,0)',
+        'Phase2a(0,0,0)', 'Phase2b(0,0,0,0)', 'Phase2b(0,1,0,0)']),
+        ('ValueChosen', 69, ['Init', 'Phase1a(0,0)', 'Phase1b(0,0,0)',
+        'Phase1b(0,1,0)', 'Phase2a(0,0,0)', 'Phase2b(0,0,0,0)',
+        'Phase2b(0,2,0,0)']), ('ValueChosen', 70, ['Init', 'Phase1a(0,0)',
+        'Phase1b(0,0,0)', 'Phase1b(0,1,0)', 'Phase2a(0,0,1)',
+        'Phase2b(0,0,0,1)', 'Phase2b(0,1,0,1)']), ('ValueChosen', 71, ['Init',
+        'Phase1a(0,0)', 'Phase1b(0,0,0)', 'Phase1b(0,1,0)', 'Phase2a(0,0,1)',
+        'Phase2b(0,0,0,1)', 'Phase2b(0,2,0,1)']), ('ValueChosen', 74, ['Init',
+        'Phase1a(0,1)', 'Phase1b(0,0,1)', 'Phase1b(0,1,1)', 'Phase2a(0,1,0)',
+        'Phase2b(0,0,1,0)', 'Phase2b(0,1,1,0)']), ('ValueChosen', 75, ['Init',
+        'Phase1a(0,1)', 'Phase1b(0,0,1)', 'Phase1b(0,1,1)', 'Phase2a(0,1,0)',
+        'Phase2b(0,0,1,0)', 'Phase2b(0,2,1,0)']), ('ValueChosen', 76, ['Init',
+        'Phase1a(0,1)', 'Phase1b(0,0,1)', 'Phase1b(0,1,1)', 'Phase2a(0,1,1)',
+        'Phase2b(0,0,1,1)', 'Phase2b(0,1,1,1)']), ('ValueChosen', 77, ['Init',
+        'Phase1a(0,1)', 'Phase1b(0,0,1)', 'Phase1b(0,1,1)', 'Phase2a(0,1,1)',
+        'Phase2b(0,0,1,1)', 'Phase2b(0,2,1,1)'])]),
+    "vc-p12": (19, 40, 6, [1, 1, 1, 3, 6, 6], 4, [('ValueChosen', 15, ['Init',
+        'Phase1a(0,0)', 'Phase1b(0,0,0)', 'Phase1b(0,1,0)', 'Phase2a(0,0,0)',
+        'Phase2b(0,0,0,0)', 'Phase2b(0,1,0,0)']), ('ValueChosen', 16, ['Init',
+        'Phase1a(0,0)', 'Phase1b(0,0,0)', 'Phase1b(0,1,0)', 'Phase2a(0,0,0)',
+        'Phase2b(0,0,0,0)', 'Phase2b(0,2,0,0)']), ('ValueChosen', 17, ['Init',
+        'Phase1a(0,0)', 'Phase1b(0,0,0)', 'Phase1b(0,1,0)', 'Phase2a(0,0,1)',
+        'Phase2b(0,0,0,1)', 'Phase2b(0,1,0,1)']), ('ValueChosen', 18, ['Init',
+        'Phase1a(0,0)', 'Phase1b(0,0,0)', 'Phase1b(0,1,0)', 'Phase2a(0,0,1)',
+        'Phase2b(0,0,0,1)', 'Phase2b(0,2,0,1)'])]),
+}
+# Phase 19b: the LeaderCompleteness_false hunt of the reference's
+# tests/test_divergence.py (config #4's variant at 3 servers, bounds
+# 2/3/2, seeded with the ConcurrentLeaders witness): the oracle
+# (raft_tla_tpu/models/explore.py, trace_violations) finds it at depth 6
+# with this witness past the seed.
+LC_HUNT_DEPTH = 6
+LC_HUNT_TRACE = ["ClientRequest(1,1)", "AppendEntries(1,2)",
+                 "AENoConflict(2)", "AEAlreadyDone(2)",
+                 "HandleAEResp(1<-2)", "AdvanceCommitIndex(1)"]
 
 
 def log(msg):
@@ -2530,11 +2715,368 @@ def spill_sim_obs_phase(torch, fp, here, card, eager_ms, bound_ms):
     return dict(spill_sinks=a, query=b, sim=c, profile=d, wall=wall)
 
 
+def _batch_cli(argv):
+    """``batch`` through the CLI in this process: (exit code, summary,
+    report lines, stderr, the BucketEngines it built, the waves it
+    ran)."""
+    from raft_tla_tpu_torch.serve import batch as sb
+    made, waves = [], []
+    init, run_wave = sb.BucketEngine.__init__, sb.BucketEngine.run_wave
+
+    def rec_init(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def rec_wave(self, runs, *a, **kw):
+        waves.append([r.job.label for r in runs])
+        return run_wave(self, runs, *a, **kw)
+
+    sb.BucketEngine.__init__ = rec_init
+    sb.BucketEngine.run_wave = rec_wave
+    try:
+        rc, out, err, _seen = cli_run(argv)
+    finally:
+        sb.BucketEngine.__init__ = init
+        sb.BucketEngine.run_wave = run_wave
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    return (rc, lines[0] if lines else None, lines[1:], err, made, waves)
+
+
+def _untimed(rep, drop=()):
+    return {k: v for k, v in rep.items()
+            if k not in BATCH_TIMING and k not in drop}
+
+
+def _check_batch_answers(reps, tag):
+    """Every job's report against the reference's solo answer."""
+    check([r["label"] for r in reps] == [j["label"] for j in BATCH_JOBS],
+          f"{tag}: report order {[r['label'] for r in reps]}")
+    for r in reps:
+        want = BATCH_PINS[r["label"]]
+        got = (r["distinct_states"], r["generated_states"], r["depth"],
+               r["level_sizes"], r["violations"],
+               [(d["invariant"], d["state_id"], d.get("trace"))
+                for d in r["violations_detail"]])
+        check(got == want, f"{tag} {r['label']}: {got} != {want}")
+
+
+def _batch_idle_share(torch, jobs, wall_of):
+    """The device's idle share over one wave re-run under torch.profiler:
+    1 - (the device time of its kernels) / (the wave's unprofiled wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    from raft_tla_tpu_torch.serve import WaveScheduler, job_from_dict
+    torch.cuda.synchronize()
+    sch = WaveScheduler()
+    todo = [job_from_dict(dict(j)) for j in jobs]
+    t0 = time.perf_counter()
+    sch.serve(todo)               # warm: the graph is captured here
+    torch.cuda.synchronize()
+    wall_warm = time.perf_counter() - t0
+    todo = [job_from_dict(dict(j)) for j in jobs]
+    t0 = time.perf_counter()
+    sch.serve(todo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sch.serve([job_from_dict(dict(j)) for j in jobs])
+        torch.cuda.synchronize()
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            busy_us += us
+            kernels += e.count if us > 0 else 0
+    return dict(wall_s=wall, first_wall_s=wall_warm,
+                device_busy_ms=busy_us / 1e3, device_kernels=kernels,
+                device_idle_share=1.0 - busy_us / 1e6 / wall)
+
+
+def batch_phase(torch, fp, here, tmp, card):
+    """Phase 18 (a-c): the serving sweep through ``batch``; its cache;
+    a killed and resumed run."""
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    jobs = [dict(j) for j in BATCH_JOBS]
+    for j in jobs:
+        if j["spec"] == "raft":
+            j["config"] = os.path.join(here, j["config"])
+    path = os.path.join(tmp, "jobs.jsonl")
+    with open(path, "w") as fh:
+        fh.write("\n".join(json.dumps(j) for j in jobs) + "\n")
+    cache = os.path.join(tmp, "cache")
+    # (a) the sweep, its launches counted from 0
+    ctr.reset()
+    t0 = time.perf_counter()
+    rc, summ, reps, err, made, waves = _batch_cli(
+        ["batch", "--jobs", path, "--cache-dir", cache])
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    check(rc == 1, f"18a: exit {rc} (violations expected): {err[-400:]}")
+    check(len(BATCH_JOBS) >= 32 and len(waves) >= 4,
+          f"18a: {len(BATCH_JOBS)} jobs in {len(waves)} waves")
+    check(all(len(w) <= 8 for w in waves), f"18a: waves {waves}")
+    _check_batch_answers(reps, "18a")
+    fell = sorted(r["label"] for r in reps if r["status"] == "fallback")
+    check(fell == sorted(BATCH_FALLBACK), f"18a: fallbacks {fell}")
+    check(all(r["status"] == "done" for r in reps
+              if r["label"] not in BATCH_FALLBACK), "18a: statuses")
+    check(all(r["dedup_kernel"] == 1 for r in reps),
+          "18a: a report without the kernel")
+    traced = [r["label"] for r in reps if any(
+        "trace" in d for d in r["violations_detail"])]
+    check(len(traced) >= 4, f"18a: witness traces for {traced}")
+    captures = sum(be._graphs.captures for be in made)
+    replays = sum(be._graphs.replays for be in made)
+    per_step = sorted({held for be in made
+                       for _g, held in be._graphs._graphs.values()})
+    check(replays > 0 and per_step and all(
+        held == key[1] for be in made
+        for key, (_g, held) in be._graphs._graphs.items()),
+        f"18a: kernel launches per captured step {per_step}")
+    check(launches > 0, "18a: the dedup kernel never ran")
+    log(f"phase 18a batch sweep [{card}]: {len(reps)} jobs, "
+        f"{summ['buckets']} buckets, {len(waves)} waves, "
+        f"{summ['batch_dispatches']} batched dispatches, "
+        f"{summ['fallback_jobs']} fallbacks ({', '.join(fell)}), "
+        f"{summ['violations']} violations with {len(traced)} witness "
+        f"traces, every answer == the reference's solo runs; wall "
+        f"{wall:.2f} s; {captures} graph captures, {replays} replays, "
+        f"dedup launches {launches} ({per_step} per batched step, one "
+        f"per job slot)")
+    log("phase 18a per-job seconds [" + card + "]: " + ", ".join(
+        f"{r['label']} {r['service_s']}" for r in reps))
+    # the --sequential A/B on four jobs
+    sub = os.path.join(tmp, "seq.jsonl")
+    with open(sub, "w") as fh:
+        fh.write("\n".join(json.dumps(j) for j in jobs
+                           if j["label"] in BATCH_SEQUENTIAL) + "\n")
+    t1 = time.perf_counter()
+    rc_s, summ_s, reps_s, err_s, _m, _w = _batch_cli(
+        ["batch", "--jobs", sub, "--sequential"])
+    seq_wall = time.perf_counter() - t1
+    check(rc_s == 0 and summ_s["sequential"] and
+          summ_s["engines_compiled"] == len(BATCH_SEQUENTIAL),
+          f"18a sequential: exit {rc_s} {summ_s} {err_s[-300:]}")
+    by = {r["label"]: r for r in reps}
+    for r in reps_s:
+        check(_untimed(r) == _untimed(by[r["label"]]),
+              f"18a sequential {r['label']}: {r} != {by[r['label']]}")
+    # (b) the same job file against the filled cache
+    t1 = time.perf_counter()
+    rc_b, summ_b, reps_b, _e, _m, _w = _batch_cli(
+        ["batch", "--jobs", path, "--cache-dir", cache])
+    cache_wall = time.perf_counter() - t1
+    check(rc_b == 1 and summ_b["cache_hits"] == len(BATCH_JOBS) and
+          summ_b["batch_dispatches"] == 0 and
+          summ_b["engines_compiled"] == 0, f"18b: {summ_b}")
+    for r, a in zip(reps_b, reps):
+        check(r["status"] == "cache_hit" and
+              _untimed(r, ("status",)) == _untimed(a, ("status",)),
+              f"18b {r['label']}")
+    log(f"phase 18b cache [{card}]: every job answered from the cache "
+        f"with 0 batched dispatches in {cache_wall:.2f} s")
+    # (c) preemption and a kill, then the resume
+    ws = os.path.join(tmp, "waves")
+    argv = ["batch", "--jobs", path, "--wave-yield", "1", "--wave-state",
+            ws]
+    t1 = time.perf_counter()
+    rc_k, _s, _r, err_k, _m, _w = _batch_cli(
+        argv + ["--chaos", "wave_kill:at=2"])
+    check(rc_k == 3 and "batch run failed" in err_k,
+          f"18c kill: exit {rc_k} {err_k[-300:]}")
+    saved = [f for f in os.listdir(ws) if f.endswith(".wave.npz")]
+    rc_c, summ_c, reps_c, err_c, _m, waves_c = _batch_cli(argv)
+    resume_wall = time.perf_counter() - t1
+    check(rc_c == 1 and summ_c["resumed_jobs"] > 0,
+          f"18c resume: {summ_c}")
+    for r, a in zip(reps_c, reps):
+        check(_untimed(r, ("status_reason",)) ==
+              _untimed(a, ("status_reason",)), f"18c {r['label']}")
+    check(not [f for f in os.listdir(ws) if f.endswith(".wave.npz")],
+          "18c: wave state left behind")
+    log(f"phase 18c kill and resume [{card}]: killed at the second wave "
+        f"boundary with {len(saved)} jobs' wave state on disk; the resume "
+        f"ran {len(waves_c)} waves ({summ_c['parked_waves']} parked), "
+        f"resumed {summ_c['resumed_jobs']} jobs, every report == 18a's; "
+        f"{resume_wall:.2f} s for both runs")
+    return dict(jobs=len(reps), buckets=summ["buckets"], waves=len(waves),
+                dispatches=summ["batch_dispatches"], wall=wall,
+                seconds_per_job={r["label"]: r["service_s"] for r in reps},
+                captures=captures, replays=replays, launches=launches,
+                launches_per_step=per_step, sequential_wall=seq_wall,
+                cache_wall=cache_wall, resume_wall=resume_wall,
+                resumed_jobs=summ_c["resumed_jobs"],
+                killed_with_saved=len(saved), jobs_file=jobs)
+
+
+def fixture_i(torch, fp, cvt, home_slots, card):
+    """18d: the dedup kernel at the serving bucket's shapes: eight 2^15
+    tables filled to 35%, M = the bucket's FCAP (8,192), launched back to
+    back as a batched step does; each held against the twin, the eight
+    timed together by CUDA events, beside the bound."""
+    import numpy as np
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(18)
+    vcap, M, J, W = 1 << 15, 8192, 8, 2
+    tabs, keys_l, live_l, probes, nbytes, plain_ms = [], [], [], 0, 0, 0.0
+    err = 0
+    for j in range(J):
+        n_fill = int(0.35 * vcap)
+        pool = _keys(rng, n_fill + M, W, salt=100 + j)
+        table = torch.full((W, vcap), -1, dtype=torch.int32, device=dev)
+        fp.probe_claim_insert(table, cvt.words_to_torch(pool[:, :n_fill],
+                                                        dev),
+                              torch.ones(n_fill, dtype=torch.bool,
+                                         device=dev))
+        pick = np.concatenate([rng.randint(0, n_fill, M // 4),
+                               n_fill + rng.randint(0, M // 2,
+                                                    M - M // 4)])
+        keys = cvt.words_to_torch(pool[:, pick], dev)
+        live = torch.ones(M, dtype=torch.bool, device=dev)
+        t_k = table.clone()
+        fk, pk, hk = fp.probe_claim_insert(t_k, keys, live)
+        t_p = table.cpu()
+        t0 = time.perf_counter()
+        fpl, ppl, hpl = fp.probe_claim_insert_plain(t_p, keys.cpu(),
+                                                    live.cpu())
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        err = max(err, int((t_k.cpu().long() - t_p.long()).abs().max()),
+                  int((pk.cpu().long() - ppl.long()).abs().max()),
+                  int((fk.cpu().long() - fpl.long()).abs().max()))
+        check(torch.equal(t_k.cpu(), t_p) and torch.equal(fk.cpu(), fpl)
+              and torch.equal(pk.cpu(), ppl) and bool(hk) == bool(hpl)
+              and not bool(hk), f"18d: table {j}: kernel != twin")
+        home = home_slots(keys, vcap).long()
+        probes_j = _probes(home, pk.long(), vcap, fp.MAX_PROBE_ROUNDS)
+        probes += probes_j
+        nbytes += (4 * W * M + M + 4 * W * probes_j +
+                   4 * W * int(fk.sum()) + M + 4 * M + 4)
+        tabs.append(table)
+        keys_l.append(keys)
+        live_l.append(live)
+    ms = []
+    for _ in range(5):
+        copies = [t.clone() for t in tabs]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        for t, k, lv in zip(copies, keys_l, live_l):
+            fp.probe_claim_insert(t, k, lv)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    total = sorted(ms)[len(ms) // 2]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"phase 18d fixture (i) (8 tables of 2^15 at 35%, M {M} each, "
+        f"launched back to back) [{card}]: kernel == twin on every "
+        f"table; {total:.4f} ms for the eight (median of 5, "
+        f"{total / J:.4f} ms a launch), plain twin {plain_ms:.1f} ms, "
+        f"{probes} probes, {nbytes} bytes (bound {bound:.6f} ms)")
+    return dict(ms=total, ms_per_launch=total / J, plain_ms=plain_ms,
+                bound_ms=bound, probes=probes, bytes=nbytes,
+                max_abs_err=err)
+
+
+def serving_phase(torch, fp, cvt, home_slots, here, card):
+    """Phase 18: batched serving on the card."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    try:
+        a = batch_phase(torch, fp, here, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    jobs = a.pop("jobs_file")
+    # the device's idle share over 18a's first raft wave, re-run
+    idle = _batch_idle_share(torch, jobs[:8], a["wall"])
+    log(f"phase 18 idle share [{card}]: 18a's first wave (8 raft jobs) "
+        f"{idle['wall_s']:.3f} s warm ({idle['first_wall_s']:.3f} s with "
+        f"its capture), device busy {idle['device_busy_ms']:.1f} ms in "
+        f"{idle['device_kernels']} kernels: idle share "
+        f"{idle['device_idle_share']:.3f}")
+    d = fixture_i(torch, fp, cvt, home_slots, card)
+    wall = time.perf_counter() - t0
+    log(f"phase 18 [{card}]: {wall:.1f} s")
+    return dict(sweep=a, idle=idle, kernel=d, wall=wall)
+
+
+def config4_phase(torch, fp, here, card):
+    """Phase 19: BASELINE config #4 (the apalache variant) to depth 10
+    against baseline_runs/config4.json, and the LeaderCompleteness_false
+    hunt against the oracle's witness."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.engine.bfs import Engine
+    from raft_tla_tpu_torch.models.explore import _walk_key
+    from raft_tla_tpu_torch.models.golden import CONCURRENT_LEADERS_LABELS
+    from raft_tla_tpu_torch.models.predicates import resolve_invariant
+    from raft_tla_tpu_torch.models.raft import init_state, successors
+    apa = os.path.join(here, "configs/apalache_no_membership/raft.cfg")
+    with open(os.path.join(here, "baseline_runs/config4.json")) as fh:
+        base = json.load(fh)["engine"]
+    cfg = load_model(apa)
+    check(cfg.apalache_variant, "config #4 is not the apalache variant")
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    ctr.reset()
+    t0 = time.perf_counter()
+    r = Engine(cfg).check(max_depth=10)
+    wall = time.perf_counter() - t0
+    check((r.distinct_states, r.depth, len(r.violations)) ==
+          (base["distinct"], base["depth"], base["violations"]),
+          f"config #4: {r.distinct_states}, depth {r.depth}, "
+          f"{len(r.violations)} violations")
+    launches = ctr.count
+    log(f"phase 19a config #4 [{card}]: {r.distinct_states} states at "
+        f"depth {r.depth}, 0 violations == baseline_runs/config4.json; "
+        f"{wall:.2f} s, {launches} dedup launches")
+    hunt = load_model(apa, bounds=Bounds.make(
+        max_log_length=2, max_timeouts=3, max_client_requests=2)).with_(
+            n_servers=3, init_servers=(0, 1, 2),
+            invariants=("LeaderCompleteness",))
+    sv, h = init_state(hunt)
+    for lbl in CONCURRENT_LEADERS_LABELS:
+        (sv, h), = [(s2, h2) for l2, s2, h2 in successors(sv, h, hunt)
+                    if l2 == lbl]
+    t0 = time.perf_counter()
+    eng = Engine(hunt, chunk=256)
+    got = eng.check(seed_states=[(sv, h)], stop_on_violation=True,
+                    max_states=200_000)
+    hunt_wall = time.perf_counter() - t0
+    chain = [s_ for _l, s_ in eng.trace(got.violations[0].state_id)]
+    check(got.violations[0].invariant == "LeaderCompleteness" and
+          got.depth == LC_HUNT_DEPTH and len(chain) == LC_HUNT_DEPTH + 1,
+          f"LeaderCompleteness hunt: depth {got.depth}, {len(chain)} "
+          "states")
+    # the engine's witness, step by step through the oracle from the
+    # seed (its lane labels name bag slots, the oracle's the handlers)
+    check(_walk_key(chain[0]) == _walk_key(sv), "hunt: not from the seed")
+    labels = []
+    for nxt in chain[1:]:
+        step = [(lb, s2, h2) for lb, s2, h2 in successors(sv, h, hunt)
+                if _walk_key(s2) == _walk_key(nxt)]
+        check(len(step) >= 1, f"hunt: step {len(labels) + 1} is not an "
+              "oracle successor")
+        lb, sv, h = step[0]
+        labels.append(lb)
+    check(labels == LC_HUNT_TRACE, f"hunt: witness {labels}")
+    check(not resolve_invariant("LeaderCompleteness", hunt)(sv, h, hunt),
+          "hunt: the witness's end state holds LeaderCompleteness")
+    log(f"phase 19b LeaderCompleteness_false hunt [{card}]: found at "
+        f"depth {got.depth} from the ConcurrentLeaders witness; its "
+        f"witness, replayed by the oracle, is the oracle's "
+        f"({' -> '.join(LC_HUNT_TRACE)}); {hunt_wall:.2f} s")
+    return dict(distinct=r.distinct_states, wall=wall, launches=launches,
+                hunt_depth=got.depth, hunt_wall=hunt_wall,
+                hunt_distinct=got.distinct_states)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--phase", "15"], ["--phase", "16"],
-                    ["--phase", "17"]):
-        print("usage: python3 chip_smoke.py [--phase 15|16|17]",
+                    ["--phase", "17"], ["--phase", "18"],
+                    ["--phase", "19"]):
+        print("usage: python3 chip_smoke.py [--phase 15|16|17|18|19]",
               file=sys.stderr)
         return 2
     only = argv[1] if argv else None
@@ -2568,9 +3110,14 @@ def main(argv=None):
     cuda_ext.library()
     log(f"phase 2 build and load: {time.perf_counter() - t0:.1f} s")
     if only:
-        # phases 1, 2 and 15, 16 or 17 alone: no result line
+        # phases 1, 2 and one of 15-19 alone: no result line
         if only == "15":
             got = {"paxos": paxos_phase(torch, fp, cvt, home_slots, card)}
+        elif only == "18":
+            got = {"serving": serving_phase(torch, fp, cvt, home_slots,
+                                            here, card)}
+        elif only == "19":
+            got = {"config4": config4_phase(torch, fp, here, card)}
         elif only == "17":
             # fixture (h) gives the kernel's eager time and bound at the
             # spill engine's shapes
@@ -2723,17 +3270,25 @@ def main(argv=None):
     # phase 17: the bundle on the spill engine and the walker, cli obs
     t17 = spill_sim_obs_phase(torch, fp, here, card, meas["spill_ms"],
                               meas["spill_bound_ms"])
+    # phase 18: batched serving, the dedup kernel once per job slot in
+    # the captured job-axis step
+    t18 = serving_phase(torch, fp, cvt, home_slots, here, card)
+    # phase 19: BASELINE config #4 and the apalache divergence hunt
+    t19 = config4_phase(torch, fp, here, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"phase17": t17}))
+    log(json.dumps({"phase18": t18, "phase19": t19}))
 
     print(json.dumps({"kernels": [{
         "name": "probe_claim_insert", "route": "cuda",
         "source": "raft_tla_tpu_torch/csrc/probe_claim.cu",
         "replaces": "raft_tla_tpu/engine/fingerprint.py:1025",
-        "launches": c5["launches"], "max_abs_err": meas["max_abs_err"],
+        "launches": c5["launches"],
+        "max_abs_err": max(meas["max_abs_err"],
+                           t18["kernel"]["max_abs_err"]),
         "ms": meas["ms"], "plain_ms": meas["plain_ms"],
         "bound_ms": meas["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "rounds": meas["rounds"],
@@ -2792,7 +3347,16 @@ def main(argv=None):
         "spill_in_graph_of": "phase 17d: config #2 on the spill engine "
                              "with the host table to depth 15 under "
                              "torch.profiler, median device time of the "
-                             "kernel events of graph replays"}],
+                             "kernel events of graph replays",
+        "batch_launches": t18["sweep"]["launches"],
+        "batch_launches_per_step": t18["sweep"]["launches_per_step"],
+        "batch_shape_ms": t18["kernel"]["ms"],
+        "batch_shape_ms_per_launch": t18["kernel"]["ms_per_launch"],
+        "batch_shape_plain_ms": t18["kernel"]["plain_ms"],
+        "batch_shape_bound_ms": t18["kernel"]["bound_ms"],
+        "batch_shape_of": "phase 18d fixture (i): 8 tables of 2^15 at "
+                          "35%, M 8,192 each, launched back to back",
+        "config4_launches": t19["launches"]}],
         "obs": t16,
         "paxos": t15,
         "spill": {"config2_depth20": t14, "host_table_depth19": t14b},

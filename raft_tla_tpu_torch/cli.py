@@ -227,22 +227,28 @@ def _obs_flags_set(args) -> bool:
     return any(getattr(args, nm, None) for nm in _OBS_ARGS)
 
 
-def _build_obs(args, ir, cfg, cmd):
+def _build_obs(args, ir=None, cfg=None, cmd=None):
     """The observability bundle the flags describe (NULL_OBS when none
-    is set): the spec name and IR fingerprint stamp every ledger record,
-    the command (``check`` or ``simulate``) and the cfg ride the meta
-    row and the registry record, and the bundle describes the run's
-    device (``--device``)."""
+    is set): ``ir`` stamps the spec name and IR fingerprint into every
+    ledger record, the command (``check``, ``simulate``, ``batch``) and
+    the cfg ride the meta row and the registry record (``batch`` has
+    many specs and configs and passes neither), and the bundle
+    describes the run's device (``--device``)."""
     from .obs import NULL_OBS, from_flags
     from .utils import resolve_device
     if not _obs_flags_set(args):
         return NULL_OBS
+    meta = ({"spec": ir.name, "ir_fingerprint": ir.fingerprint()}
+            if ir is not None else None)
+    run_info = {}
+    if cmd is not None:
+        run_info["cmd"] = cmd
+    if cfg is not None:
+        run_info["cfg"] = repr(cfg)
     return from_flags(ledger=args.ledger, heartbeat=args.heartbeat,
                       timeline=args.trace_timeline,
                       profile_dir=args.profile_dir, registry=args.registry,
-                      meta={"spec": ir.name,
-                            "ir_fingerprint": ir.fingerprint()},
-                      run_info={"cmd": cmd, "cfg": repr(cfg)},
+                      meta=meta, run_info=run_info or None,
                       device=str(resolve_device(args.device)))
 
 
@@ -287,7 +293,8 @@ def _engine(cfg, args, store_states):
               delta_matmul=args.delta_matmul,
               fam_density=args.fam_density,
               archive_dir=getattr(args, "archive_dir", None),
-              device=args.device)
+              device=args.device,
+              dedup_kernel=getattr(args, "dedup_kernel", "auto"))
     if getattr(args, "spill", False):
         # the host-spill engine: levels stream through host RAM
         # (engine/spill.py); --host-table moves the visited set to
@@ -321,7 +328,7 @@ def _check_retry_flags(args):
         return f"--retries must be >= 0 (got {args.retries})"
     if args.backoff <= 0:
         return f"--backoff must be positive (got {args.backoff})"
-    if args.ckpt_keep < 1:
+    if getattr(args, "ckpt_keep", 1) < 1:
         return f"--ckpt-keep must be >= 1 (got {args.ckpt_keep})"
     return None
 
@@ -445,6 +452,20 @@ def cmd_check(args) -> int:
         print("--pjit (the pod-scale pjit engine) is not ported to this "
               "package: run on one device, or use --spill",
               file=sys.stderr)
+        return 2
+    import torch
+    if args.dedup_kernel == "on" and args.engine != "oracle" and (
+            args.device == "cpu" or not torch.cuda.is_available()):
+        print("--dedup-kernel on needs a CUDA device: the hand kernel "
+              "(csrc/probe_claim.cu) runs on the card only; use 'auto' "
+              "or 'off' on the CPU", file=sys.stderr)
+        return 2
+    if args.dedup_kernel == "off" and args.engine != "oracle" and \
+            args.device != "cpu":
+        print("--dedup-kernel off needs --device cpu: the plain twin reads "
+              "the visited table back to the host, so on the card it "
+              "would move the dedup off the device; use 'auto' or 'on' "
+              "there", file=sys.stderr)
         return 2
     err = _check_retry_flags(args) or _install_chaos(args)
     if err:
@@ -739,6 +760,156 @@ def cmd_simulate(args) -> int:
         _write_seed(args.emit_seed,
                     _seed_obj(ir, h.trace[-1][1], h.hist, h.state_arrs))
     return 0
+
+
+def cmd_batch(args):
+    """Batched checking of many small jobs (serve/): a job list from a
+    JSONL file and/or repeated --job flags, grouped into shape buckets
+    and run as one job-axis program per bucket, with fingerprint-keyed
+    result caching.  Prints one summary JSON line, then one report line
+    per job (submission order).  Exit 0 = all clean, 1 = some job found
+    violations, 2 = usage error, 3 = --retries spent."""
+    from .cfg.parser import CfgError
+    from .serve import job_from_dict, load_jobs
+    jobs = []
+    if args.jobs:
+        try:
+            jobs.extend(load_jobs(args.jobs))
+        except (OSError, ValueError, CfgError) as e:
+            print(str(e), file=sys.stderr)
+            return 2
+    for k, text in enumerate(args.job or []):
+        where = f"--job #{k + 1}"
+        try:
+            jobs.append(job_from_dict(json.loads(text), where=where))
+        except (OSError, ValueError) as e:
+            # OSError too: a missing config path is a usage error
+            # (exit 2), not a violation-style exit 1
+            msg = str(e) if str(e).startswith(where) \
+                else f"{where}: {e}"
+            print(msg, file=sys.stderr)
+            return 2
+    if not jobs:
+        print("no jobs: pass --jobs FILE.jsonl and/or --job JSON",
+              file=sys.stderr)
+        return 2
+    if args.cache_max_bytes is not None and args.cache_max_bytes <= 0:
+        print(f"--cache-max-bytes must be positive (got "
+              f"{args.cache_max_bytes}); omit it for an unbounded "
+              "cache", file=sys.stderr)
+        return 2
+    if args.cache_max_bytes is not None and not args.cache_dir:
+        print("--cache-max-bytes bounds the on-disk result cache: "
+              "add --cache-dir", file=sys.stderr)
+        return 2
+    if args.wave_yield is not None and args.wave_yield < 1:
+        print(f"--wave-yield must be >= 1 (got {args.wave_yield})",
+              file=sys.stderr)
+        return 2
+    if args.max_wave is not None and args.max_wave < 1:
+        print(f"--max-wave must be >= 1 (got {args.max_wave})",
+              file=sys.stderr)
+        return 2
+    try:
+        from .serve.batch import resolve_wave_mesh
+        resolve_wave_mesh(args.wave_mesh)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    if args.executable_cache_max_bytes is not None:
+        if args.executable_cache_max_bytes <= 0:
+            print(f"--executable-cache-max-bytes must be positive "
+                  f"(got {args.executable_cache_max_bytes}); omit it "
+                  "for an unbounded cache", file=sys.stderr)
+            return 2
+        if not args.executable_cache:
+            print("--executable-cache-max-bytes bounds the on-disk "
+                  "executable cache: add --executable-cache",
+                  file=sys.stderr)
+            return 2
+    if args.executable_cache:
+        from .serve.scheduler import _EXEC_CACHE_REFUSAL
+        print(f"--executable-cache: {_EXEC_CACHE_REFUSAL}",
+              file=sys.stderr)
+        return 2
+    err = _check_retry_flags(args) or _install_chaos(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
+    try:
+        return _batch(args, jobs)
+    finally:
+        # the schedule is process-global: it lives as long as this run
+        if args.chaos:
+            from .resil.chaos import uninstall
+            uninstall()
+
+
+def _batch(args, jobs) -> int:
+    from .resil.supervisor import RETRYABLE, backoff_delay
+    from .serve import ResultCache, run_jobs
+    cache = ResultCache(args.cache_dir,
+                        max_bytes=args.cache_max_bytes) \
+        if args.cache_dir else None
+    obs = _build_obs(args, cmd="batch")
+    obs.start()
+    done = False
+    rep = None
+    attempt = 0
+    try:
+        while True:
+            try:
+                rep = run_jobs(jobs, cache=cache, obs=obs,
+                               sequential=args.sequential,
+                               verbose=args.verbose,
+                               wave_state=args.wave_state,
+                               wave_yield=args.wave_yield,
+                               max_wave=args.max_wave,
+                               wave_mesh=args.wave_mesh,
+                               bucket_overrides=(
+                                   {"sym_canon": args.sym_canon}
+                                   if args.sym_canon != "auto"
+                                   else None),
+                               device=args.device)
+                done = True
+                break
+            except RETRYABLE as e:
+                # a retried batch is incremental: finished jobs answer
+                # from the result cache, stragglers resume mid-BFS
+                # from --wave-state
+                if attempt >= args.retries:
+                    print(f"batch run failed: {e}", file=sys.stderr)
+                    return 3
+                wait = backoff_delay(attempt, args.backoff, 60.0)
+                obs.retry(attempt=attempt + 1,
+                          max_attempts=args.retries + 1,
+                          wait_s=wait, error=e)
+                time.sleep(wait)
+                attempt += 1
+    finally:
+        if done:
+            obs.finish(
+                depth=max((int(o.report.get("depth", 0))
+                           for o in rep.outcomes), default=0),
+                states=sum(int(o.report.get("distinct_states", 0))
+                           for o in rep.outcomes),
+                # the batch summary's scalar counters (jobs, buckets,
+                # cache hits, dispatches) are the run's registry record
+                counters={k: v for k, v in rep.summary.items()
+                          if isinstance(v, (int, float))
+                          and not isinstance(v, bool)})
+        else:
+            obs.finish(status="failed")
+    print(json.dumps(rep.summary))
+    for o in rep.outcomes:
+        print(json.dumps(o.report))
+    if args.stats_json:
+        with open(args.stats_json, "w") as fh:
+            json.dump({"summary": rep.summary,
+                       "jobs": [o.report for o in rep.outcomes]}, fh)
+    n_viol = sum(int(o.report.get("violations", 0))
+                 for o in rep.outcomes)
+    return 1 if n_viol else 0
 
 
 def _load_baseline_file(path, row):
@@ -1053,6 +1224,15 @@ def main(argv=None) -> int:
                     metavar="K",
                     help="max levels fused per burst dispatch "
                          "(default 16)")
+    pc.add_argument("--dedup-kernel", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="the dedup kernel (csrc/probe_claim.cu): "
+                         "'auto' (default) launches it on the card and "
+                         "runs its plain twin on the CPU; 'on' requires "
+                         "the card (a usage error without CUDA); 'off' "
+                         "runs the twin and needs --device cpu (a usage "
+                         "error on the card; the stats stamp "
+                         "dedup_kernel 0).  Same answer in every mode")
     pc.add_argument("--no-store", action="store_true",
                     help="keep no state archive: violations show the "
                          "violating state, not its trace")
@@ -1171,10 +1351,98 @@ def main(argv=None) -> int:
                          "`check --seed-trace` (simulation feeds "
                          "punctuated exhaustive search)")
     _add_obs_flags(ps)
+    pb = sub.add_parser(
+        "batch",
+        help="batched checking: many (spec, config) jobs packed into "
+             "one job-axis device program per shape bucket, with "
+             "fingerprint-keyed result caching (README 'Batch / serving "
+             "on the H100' documents the JSONL job format)")
+    pb.add_argument("--jobs", default=None, metavar="FILE",
+                    help="JSONL job file: one job object per line "
+                         "(blank lines and #-comments skipped)")
+    pb.add_argument("--job", action="append", default=None,
+                    metavar="JSON",
+                    help="inline job object (repeatable), same schema "
+                         "as a --jobs line")
+    pb.add_argument("--cache-dir", default=None, metavar="DIR",
+                    help="result cache: jobs whose (spec, config, "
+                         "engine-options) fingerprints match a cached "
+                         "result are answered with zero device "
+                         "dispatches; results persist across "
+                         "invocations")
+    pb.add_argument("--cache-max-bytes", type=int, default=None,
+                    metavar="N",
+                    help="LRU-by-bytes cache bound: every completed "
+                         "job's put trims the --cache-dir back under "
+                         "N bytes, least-recently-used payloads "
+                         "first (default: unbounded, the historical "
+                         "behavior)")
+    pb.add_argument("--executable-cache", default=None, metavar="DIR",
+                    help="the reference's persistent executable cache: "
+                         "not ported (ROADMAP item 8b), refused with "
+                         "exit 2")
+    pb.add_argument("--executable-cache-max-bytes", type=int,
+                    default=None, metavar="N",
+                    help="LRU bound of --executable-cache (refused "
+                         "with it)")
+    pb.add_argument("--sequential", action="store_true",
+                    help="run each job on its own engine instead of "
+                         "the batched path (the A/B reference: N jobs "
+                         "pay N warm-ups)")
+    pb.add_argument("--wave-state", default=None, metavar="DIR",
+                    help="preemptible waves (serve/wavestate): "
+                         "persist every live job's carry slice at "
+                         "each wave boundary, so a killed run "
+                         "resumes finished jobs from --cache-dir and "
+                         "stragglers mid-BFS — bit-exact per job")
+    pb.add_argument("--wave-yield", type=int, default=None,
+                    metavar="N",
+                    help="preemption: a wave yields its lanes after "
+                         "N batched device calls while other jobs "
+                         "wait (higher Job priority runs first); "
+                         "parked jobs continue in a later wave")
+    pb.add_argument("--max-wave", type=int, default=None, metavar="N",
+                    help="jobs-per-wave ceiling (default 8); shrink "
+                         "it to force parking or to bound wave memory")
+    pb.add_argument("--wave-mesh", default="auto",
+                    metavar="auto|N|JxS|off",
+                    help="the wave's device mesh: 'auto' (default), "
+                         "'off', 0 and 1 run every wave on one device; "
+                         "a larger mesh is the multi-device wave mesh, "
+                         "not ported (ROADMAP item 9d) and refused "
+                         "with exit 2")
+    pb.add_argument("--retries", type=int, default=0, metavar="N",
+                    help="re-run the job list up to N times on a "
+                         "transient failure, with bounded exponential "
+                         "backoff — incremental via --cache-dir + "
+                         "--wave-state")
+    pb.add_argument("--backoff", type=float, default=2.0, metavar="S",
+                    help="base backoff seconds for --retries")
+    pb.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault injection (resil/"
+                         "chaos); 'wave_kill:at=1' is the "
+                         "deterministic stand-in for a kill at a wave "
+                         "boundary")
+    pb.add_argument("--sym-canon",
+                    choices=("auto", "sort", "minperm"),
+                    default="auto",
+                    help="symmetry canonicalization for every bucket "
+                         "engine and solo fallback (see check "
+                         "--sym-canon)")
+    pb.add_argument("--stats-json", default=None, metavar="FILE",
+                    help="write the batch summary + per-job reports "
+                         "as one JSON file")
+    pb.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    pb.add_argument("--verbose", "-v", action="store_true")
+    _add_obs_flags(pb)
+    pb.set_defaults(fn=cmd_batch)
+
     _add_obs_parser(sub)
     args = ap.parse_args(argv)
     return {"check": cmd_check, "trace": cmd_trace,
-            "simulate": cmd_simulate, "obs": cmd_obs}[args.cmd](args)
+            "simulate": cmd_simulate, "obs": cmd_obs,
+            "batch": cmd_batch}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -61,6 +61,7 @@ from __future__ import annotations
 import time
 from collections.abc import Mapping
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -293,10 +294,118 @@ class _Ring:
         self.hard = torch.zeros(3, dtype=torch.int64, device=dev)
         self.hard_l = torch.zeros(3, dtype=torch.int64, device=dev)
 
+    def as_jobs(self) -> SimpleNamespace:
+        """This ring as a job ring of one job, under ``_JobRing``'s
+        names: every buffer viewed with a leading [1] axis, so the
+        job-axis burst body's in-place writes land in this ring."""
+        v = SimpleNamespace(J=1, rt=None)
+        for k, t in vars(self).items():
+            setattr(v, k, {n: x[None] for n, x in t.items()}
+                    if isinstance(t, dict) else t[None])
+        return v
+
 
 def _hard_add(h: torch.Tensor, nh: torch.Tensor) -> torch.Tensor:
-    """Hard-lane stats [sum, chunks with any, max] plus one chunk's."""
-    return torch.stack([h[0] + nh, h[1] + (nh > 0), torch.maximum(h[2], nh)])
+    """Hard-lane stats [..., 3] = [sum, chunks with any, max] plus one
+    chunk's ``nh`` [...]."""
+    return torch.stack([h[..., 0] + nh, h[..., 1] + (nh > 0),
+                        torch.maximum(h[..., 2], nh)], -1)
+
+
+class _JobRing:
+    """The job-axis burst's buffers (the reference's batched carry):
+    every buffer of ``_Ring`` and the visited table, each with a leading
+    [J] axis, plus the jobs' runtime data.  ``vis`` holds each job's
+    flat table (W·VCAP slots and a spare one, as ``_Level``'s), so
+    ``table(j)`` is the contiguous [W, VCAP] view the dedup kernel takes.
+    The gates ``lv_left`` and ``st_cap`` are int32 [J] and written by the
+    host before a dispatch's replays, never inside one."""
+
+    def __init__(self, eng: "Engine", J: int, vcap: int, rt: bool):
+        dev, KB, L = eng.device, eng._burst_width(), eng.burst_levels
+        n_inv, W = len(eng.inv_names), eng.W
+        one = eng.ir.narrow(eng.lay, rows_to_torch(
+            {k: v[None] for k, v in eng.ir.encode(
+                eng.lay, *eng.ir.init_state(eng.cfg)).items()}, dev,
+            eng.ir.u32_keys))
+        shp = {k: tuple(v.shape[:-1]) for k, v in one.items()}
+        dt = {k: v.dtype for k, v in one.items()}
+
+        def z(shape, dtype=torch.int64, fill=0):
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+
+        self.J, self.VCAP, self.W = J, vcap, W
+        self.vis = z((J, W * vcap + 1), torch.int32, EMPTY)
+        self.fr = {k: z((J,) + shp[k] + (KB,), dt[k]) for k in shp}
+        self.lv = {k: z((J,) + shp[k] + (KB + 1,), dt[k]) for k in shp}
+        self.fm = z((J, KB), torch.bool, False)
+        self.gd = z((J, KB))
+        self.lvp = z((J, KB + 1), torch.int32, -1)
+        self.lvlane = z((J, KB + 1), torch.int32, -1)
+        self.jsl = z((J, KB + 1), torch.int32)
+        self.lin = z((J, n_inv, KB + 1), torch.bool, True)
+        self.lco = z((J, KB + 1), torch.bool, True)
+        self.stats = z((J, L + 1, 8))
+        self.opar = z((J, L + 1, KB), torch.int32, -1)
+        self.olane = z((J, L + 1, KB), torch.int32, -1)
+        self.ost = {k: z((J,) + shp[k] + (L + 1, KB), dt[k]) for k in shp}
+        self.oinv = z((J, n_inv, L + 1, KB), torch.bool, True)
+        (self.nf, self.base, self.nl, self.gl, self.li, self.done, self.g,
+         self.pg) = (z((J,)) for _ in range(8))
+        self.lv_left = z((J,), torch.int32)
+        self.st_cap = z((J,), torch.int32)
+        self.bail = z((J,), torch.bool, False)
+        self.viol = z((J,), torch.bool, False)
+        # no hard-lane stats: the call's hard-lane buffer holds every
+        # lane (``_burst_body``)
+        self.hard = self.hard_l = None
+        self.rt = None
+        if rt:
+            A = eng.A
+            nb = len(eng.ir.serve_runtime(eng.expander, eng.cfg)["bounds"])
+            self.rt = dict(thr=z((J, A), torch.int32),
+                           mask=z((J, A), torch.bool, True),
+                           bounds=z((J, nb), torch.int32))
+
+    def table(self, j: int) -> torch.Tensor:
+        return self.vis[j, :-1].view(self.W, self.VCAP)
+
+
+# The job-axis indexing helpers.  With one job (the solo burst) each
+# takes the plain index form on the job's own buffer, so the solo body
+# launches the kernels it would without the job axis.
+
+def _jgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [J, *s, K] at per-job columns idx [J, B] -> [*s, J*B] (the jobs'
+    rows side by side, batch-last)."""
+    J, s, B = x.shape[0], x.shape[1:-1], idx.shape[1]
+    if J == 1:
+        return x[0].index_select(-1, idx[0])
+    ix = idx.view((J,) + (1,) * len(s) + (B,)).expand((J,) + s + (B,))
+    return torch.gather(x, -1, ix).movedim(0, -2).reshape(s + (J * B,))
+
+
+def _jscatter(x: torch.Tensor, pos: torch.Tensor, src: torch.Tensor):
+    """x [J, *s, K+1] at per-job columns pos [J, M] <- src [*s, J*M]
+    (masked rows carry pos K, the spare column nothing reads)."""
+    J, s, M = x.shape[0], x.shape[1:-1], pos.shape[1]
+    if J == 1:
+        x[0].index_copy_(x.dim() - 2, pos[0], src)
+        return
+    v = src.reshape(s + (J, M)).movedim(-2, 0)
+    x.scatter_(-1, pos.view((J,) + (1,) * len(s) + (M,)).expand(
+        (J,) + s + (M,)), v)
+
+
+def _jput_row(x: torch.Tensor, at: torch.Tensor, row: torch.Tensor,
+              dim: int):
+    """x [J, ..., R, ...] (R along ``dim``) <- row at per-job index at [J]
+    (row has extent 1 along ``dim``)."""
+    if x.shape[0] == 1:
+        x[0].index_copy_(dim - 1, at, row[0])
+        return
+    ix = at.view((-1,) + (1,) * (x.dim() - 1)).expand(row.shape)
+    x.scatter_(dim, ix, row)
 
 
 class _ParentRows(Mapping):
@@ -379,12 +488,27 @@ class Engine:
                  delta_chunk_skip: Optional[bool] = None,
                  fam_density: Optional[Dict[str, int]] = None,
                  archive_dir: Optional[str] = None,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 dedup_kernel: str = "auto"):
+        if dedup_kernel not in ("auto", "on", "off"):
+            raise ValueError(
+                f"dedup_kernel must be 'auto', 'on' or 'off' "
+                f"(got {dedup_kernel!r})")
         if burst_levels is not None and int(burst_levels) <= 0:
             raise ValueError(
                 f"burst_levels must be positive, got {burst_levels} "
                 "(use burst=False to disable the fused-level path)")
         self.device = resolve_device(device)
+        if dedup_kernel == "on" and self.device.type != "cuda":
+            raise ValueError(
+                "dedup_kernel='on' needs a CUDA device: the hand kernel "
+                "(csrc/probe_claim.cu) runs on the card only")
+        if dedup_kernel == "off" and self.device.type == "cuda":
+            raise ValueError(
+                "dedup_kernel='off' is for the CPU only: the plain twin "
+                "reads the table back to the host, so on the card it "
+                "would move the dedup off the device")
+        self.dedup_kernel = dedup_kernel
         self.cfg = cfg
         self.ir = spec_of(cfg)
         self.chunk = max(16, int(chunk))
@@ -449,9 +573,16 @@ class Engine:
     # invariants + constraints on batch-last rows
     # ------------------------------------------------------------------
 
-    def _phase2_T(self, svT):
-        """inv bool [n_inv, N], con bool [N]."""
-        return self.preds.check_T(svT, self.inv_names, self.con_names)
+    def _phase2_T(self, svT, rtb=None):
+        """inv bool [n_inv, N], con bool [N].  ``rtb`` is a runtime
+        search-bounds vector (``ops/vpredicates.runtime_bounds``): int32
+        [NB] for one job, or [NB, N] with one column per row (the
+        batched serving burst's rows of several jobs); host arrays move
+        to the device.  None keeps the config's bounds."""
+        if rtb is not None and not torch.is_tensor(rtb):
+            rtb = torch.as_tensor(np.asarray(rtb, np.int32),
+                                  device=self.device)
+        return self.preds.check_T(svT, self.inv_names, self.con_names, rtb)
 
     def _act_ok(self, parent, cand) -> torch.Tensor:
         """ACTION_CONSTRAINTS (TLC semantics) on batch-last (parent,
@@ -520,7 +651,9 @@ class Engine:
     # the shared front half of a chunk step and a burst iteration
     # ------------------------------------------------------------------
 
-    def _expand_fp_chunk(self, sv, valid: torch.Tensor, fcap: int):
+    def _expand_fp_chunk(self, sv, valid: torch.Tensor, fcap: int,
+                         rt=None, jobs: Optional[int] = None,
+                         hcap: Optional[int] = None):
         """Guard-first expansion over the [B, A] lane grid (rows outside
         ``valid`` [B] disabled), compaction of the enabled lanes into the
         fixed-width FCAP candidate buffer in ascending (row, lane) order,
@@ -531,28 +664,56 @@ class Engine:
         [n_fams], n_e, n_gen, n_hard): the per-family and total enabled
         counts, the live candidates (the generated states) and, in sort
         mode, the live hard lanes, all device data (n_hard None
-        otherwise).  Columns past n_e are garbage: they are not live."""
+        otherwise).  Columns past n_e are garbage: they are not live.
+
+        rt — the runtime thresholds (``Expander.guards_T``) and bounds
+        of the batched serving burst.  jobs — J jobs' chunks at once:
+        ``sv`` holds J job-major blocks of B rows, every job fills its
+        own FCAP buffer (the buffers side by side, [J * fcap] columns),
+        and counts, n_e and n_gen come back per job ([J, n_fams], [J],
+        [J]; one job compacts as a solo chunk, its n_e and n_gen 0-d);
+        hcap is then the hard-lane buffer of the whole call."""
         derb = self.kern.derived(sv)
-        okf = (self.expander.guards_T(sv, derb) &
-               valid[:, None]).reshape(-1)
-        epos, n_e = compact_positions(okf, fcap)
-        elive = torch.arange(fcap, device=self.device) < n_e
-        lanes = self._slot_lanes(epos, fcap)
+        ok = self.expander.guards_T(sv, derb, rt) & valid[:, None]
+        dev = self.device
+        if jobs is None or jobs == 1:
+            okf = ok.reshape(-1)
+            epos, n_e = compact_positions(okf, fcap)
+            elive = torch.arange(fcap, device=dev) < n_e
+            ftot = fcap
+        else:
+            # per-job compaction: job j's enabled lanes, in (row, lane)
+            # order, take slots j*fcap... of the shared buffer; lanes
+            # past a job's fcap (an overflow) go nowhere
+            J = int(jobs)
+            okj = ok.reshape(J, -1)
+            cum = torch.cumsum(okj.to(torch.int32), 1)
+            n_e = cum[:, -1]
+            jb = (torch.arange(J, dtype=torch.int32, device=dev) *
+                  fcap)[:, None]
+            ftot = J * fcap
+            epos = torch.where(okj & (cum <= fcap), cum - 1 + jb,
+                               ftot).reshape(-1)
+            okf = okj.reshape(-1)
+            elive = (torch.arange(fcap, device=dev)[None, :] <
+                     n_e[:, None]).reshape(-1)
+        lanes = self._slot_lanes(epos, ftot)
         incr = self.incremental_fp and self.fpr.supports_incremental()
         if incr:
             tables = self.fpr.parent_tables(sv)
             cand, counts, keys = self.expander.materialize(
-                sv, derb, okf, epos, fcap, self.FAM_CAPS,
-                delta_fp=(self.fpr, tables))
+                sv, derb, okf, epos, ftot, self.FAM_CAPS,
+                delta_fp=(self.fpr, tables), jobs=jobs)
         else:
             cand, counts = self.expander.materialize(
-                sv, derb, okf, epos, fcap, self.FAM_CAPS)
+                sv, derb, okf, epos, ftot, self.FAM_CAPS, jobs=jobs)
         if self.act_names:
             # ACTION_CONSTRAINTS on the compacted (parent, successor)
             # pairs: a violating transition is cleared before dedup
             prow = (lanes // self.A).clamp(max=valid.shape[0] - 1)
             elive = elive & self._act_ok(_ParentRows(sv, prow), cand)
-            n_gen = elive.sum()
+            n_gen = elive.sum() if jobs is None else \
+                elive.view(-1, fcap).sum(1)
         else:
             n_gen = n_e.clamp(max=fcap)
         n_hard = None
@@ -560,8 +721,8 @@ class Engine:
             # columns that are not live (past n_e, or cut by an action
             # constraint) must not count as hard lanes, or they would
             # fill the fallback's buffer
-            keys, n_hard = self.fpr.fingerprint_chunk_T(cand, self.HCAP,
-                                                        live=elive)
+            keys, n_hard = self.fpr.fingerprint_chunk_T(
+                cand, self.HCAP if hcap is None else hcap, live=elive)
         return cand, elive, keys, lanes, counts, n_e, n_gen, n_hard
 
     def _caps_t(self) -> torch.Tensor:
@@ -780,98 +941,145 @@ class Engine:
 
     # ------------------------------------------------------------------
     # the small-level burst (the reference's _burst_core / _burst_impl)
+    # and its job axis (_batched_burst_impl / burst_batched_fn): one
+    # body, a leading [J] axis on every buffer; the solo ring is J = 1
     # ------------------------------------------------------------------
 
-    def _burst_body(self, st: _Level, r: _Ring):
-        """One iteration of the burst loop, predicated on the loop's
-        condition: one frontier chunk of the ring through the same
-        front half as a chunk step, dedup, the second compaction, the
-        append to the level ring and, when the chunk drains the
-        frontier, the level's commit (stats, archives, the ring
-        swap).  Any overflow bails: this chunk's inserts and the
-        level's earlier ones (the ring journal) are cleared and the
-        pre-level frontier is kept.  When the condition is false the
-        iteration changes nothing, so the host may run it past the
-        loop's end.  Reads nothing back."""
+    def _burst_body(self, st, r):
+        """One iteration of the burst loop for every job of the ring at
+        once (the reference's ``_burst_core``; its serving form vmaps it
+        over jobs), predicated on each job's loop condition: one
+        frontier chunk of each job's ring through the same front half as
+        a chunk step (the guard product one product over all J·B rows,
+        compared with each job's thresholds and lane mask, and the
+        constraints reading each job's bounds), dedup into the job's
+        table (the kernel once per job slot), the second compaction, the
+        append to the level ring and, when the chunk drains the job's
+        frontier, the level's commit (stats, archives, the ring swap).
+        Any overflow bails the job: its chunk's inserts and the level's
+        earlier ones (the ring journal) are cleared and its pre-level
+        frontier is kept.  A job whose condition is false changes
+        nothing (a finished or padding job is frozen), so the host may
+        run the body past the loop's end.  Reads nothing back.
+
+        st — the level state whose table the one job of a solo ring
+        (``_Ring.as_jobs``) dedups into, or None for a ``_JobRing``,
+        whose jobs' tables are its own.  A solo ring also keeps the sort
+        mode's hard-lane stats and bails past HCAP hard lanes; a job
+        ring's hard-lane buffer holds every lane of the call."""
         B, A, FCAP, dev = self.chunk, self.A, self.FCAP, self.device
-        KB, L = self._burst_width(), self.burst_levels
+        KB, L, J, W = self._burst_width(), self.burst_levels, r.J, self.W
         OC = min(self.OCAP, KB)
+        vis = r.vis if st is None else st.vis_flat[None]
+        V = (vis.shape[1] - 1) // W
+        jar = torch.arange(J, device=dev) if J > 1 else None
+
+        def joff(x, n):
+            """x [J, ...] plus job j's offset j·n (nothing for one job)."""
+            return x if J == 1 else \
+                x + jar.view((J,) + (1,) * (x.dim() - 1)) * n
+
         run = ~r.bail & ~r.viol & (r.li < r.lv_left) & (r.nf > 0) & \
             (r.done < r.st_cap)
-        rows = r.base + torch.arange(B, device=dev)
+        rows = r.base[:, None] + torch.arange(B, device=dev)[None, :]
         win = rows.clamp(max=KB - 1)
-        sv = self.ir.widen({k: v.index_select(-1, win)
-                            for k, v in r.fr.items()})
-        valid = r.fm.index_select(0, win) & (rows < r.nf) & run
+        sv = self.ir.widen({k: _jgather(v, win) for k, v in r.fr.items()})
+        valid = (_jgather(r.fm, win).view(J, B) & (rows < r.nf[:, None]) &
+                 run[:, None]).reshape(-1)
+        solo = r.hard is not None
         cand, elive, keys, lanes, counts, n_e, n_gen, n_hard = \
-            self._expand_fp_chunk(sv, valid, FCAP)
+            self._expand_fp_chunk(sv, valid, FCAP, rt=r.rt, jobs=J,
+                                  hcap=None if solo else J * FCAP)
         # overflows known before the launch: nothing is inserted
-        bail = (n_e > FCAP) | (counts > self._caps_t()).any()
-        if n_hard is not None:
-            nh = n_hard.long()
+        bail = (n_e > FCAP) | (counts > self._caps_t()[None, :]).any(1)
+        hard = solo and n_hard is not None
+        if hard:
+            nh = n_hard.long().view(1)
             bail = bail | (nh > self.HCAP)
-        fresh, pos, hv = probe_claim_insert(st.vis, keys, elive & ~bail)
-        n_fresh = fresh.sum()
+        live = elive.view(J, FCAP) & ~bail[:, None]
+        got = [probe_claim_insert(
+            vis[j, :-1].view(W, V),
+            keys[:, j * FCAP:(j + 1) * FCAP].contiguous(),
+            live[j].contiguous()) for j in range(J)]
+        fresh, pos, hv = (torch.stack(t) if J > 1 else t[0][None]
+                          for t in zip(*got))
+        n_fresh = fresh.sum(1)
         # the probe budget, the ring outgrown, fresh rows past OC
         bail = bail | hv | (r.nl + n_fresh > KB) | (n_fresh > OC)
-        # bail: the level never happened
-        self._clear_slots(
-            st, torch.cat([pos, r.jsl[:KB]]),
-            torch.cat([fresh, torch.arange(KB, device=dev) < r.nl]) & bail)
-        fresh = fresh & ~bail
+        # bail: the level never happened (this chunk's inserts and the
+        # level's earlier ones, through the ring journal)
+        words = torch.arange(W, device=dev)[None, :, None] * V
+        slots = torch.cat([pos, r.jsl[:, :KB]], 1).long()
+        clr = torch.cat([fresh, torch.arange(KB, device=dev)[None, :] <
+                         r.nl[:, None]], 1) & bail[:, None]
+        idx = torch.where(clr[:, None, :], slots[:, None, :] + words, W * V)
+        vis.view(-1).index_fill_(0, joff(idx, W * V + 1).reshape(-1), EMPTY)
+        fresh = fresh & ~bail[:, None]
         n_fresh = torch.where(bail, 0, n_fresh)
         gl2 = r.gl + torch.where(bail, 0, n_gen)
         nl2 = r.nl + n_fresh
-        # the second compaction, then the ring append at nl (rows past
-        # n_fresh go to the spare column)
-        oidx = self._compact(fresh, OC)
-        rows_f = {k: v.index_select(-1, oidx) for k, v in cand.items()}
-        inv, con = self._phase2_T(rows_f)
+        # the second compaction per job, then the ring append at nl
+        # (rows past n_fresh go to the spare column)
+        opos = torch.where(fresh, torch.cumsum(fresh, 1) - 1, OC)
+        oidx = torch.zeros((J, OC + 1), dtype=torch.int64,
+                           device=dev).scatter_(
+            1, opos, torch.arange(FCAP, device=dev).expand(J, FCAP))[:, :OC]
+        gidx = joff(oidx, FCAP).reshape(-1)
+        rows_f = {k: v.index_select(-1, gidx) for k, v in cand.items()}
+        rtb = None
+        if r.rt is not None:
+            rtb = r.rt["bounds"].repeat_interleave(OC, 0).T
+        inv, con = self._phase2_T(rows_f, rtb)
         rows_n = self.ir.narrow(self.lay, rows_f)
-        oar = torch.arange(OC, device=dev)
-        rpos = torch.where(oar < n_fresh, r.nl + oar, KB)
+        oar = torch.arange(OC, device=dev)[None, :]
+        rpos = torch.where(oar < n_fresh[:, None], r.nl[:, None] + oar, KB)
         for k, v in r.lv.items():
-            v.index_copy_(v.dim() - 1, rpos, rows_n[k])
-        take = lanes[oidx]
-        par_row = (r.base + take // A).clamp(0, KB - 1)
-        r.lvp.index_copy_(0, rpos, r.gd[par_row].to(torch.int32))
-        r.lvlane.index_copy_(0, rpos, (take % A).to(torch.int32))
-        r.jsl.index_copy_(0, rpos, pos.index_select(0, oidx))
-        r.lin.index_copy_(1, rpos, inv)
-        r.lco.index_copy_(0, rpos, con)
-        # the level's commit, predicated (a mid-level chunk, a bail or a
-        # finished loop leaves the frontier and the archives as they
-        # are: their writes go to the spare row)
+            _jscatter(v, rpos, rows_n[k])
+        take = lanes[gidx]
+        par_row = (r.base[:, None] + joff((take // A).view(J, OC), -B)
+                   ).clamp(0, KB - 1)
+        _jscatter(r.lvp, rpos, _jgather(r.gd, par_row).to(torch.int32))
+        _jscatter(r.lvlane, rpos, (take % A).to(torch.int32))
+        _jscatter(r.jsl, rpos, _jgather(pos, oidx))
+        _jscatter(r.lin, rpos, inv)
+        _jscatter(r.lco, rpos, con)
+        # the level's commit, predicated per job (a mid-level chunk, a
+        # bail or a frozen job leaves the frontier and the archives as
+        # they are: their writes go to the spare row)
         new_base = r.base + B
         done = run & ~bail & (new_base >= r.nf)
-        validrow = torch.arange(KB, device=dev) < nl2
-        inv_ok = r.lin[:, :KB] | ~validrow
-        n_viol = (~inv_ok).sum()
-        faults = ((r.lv["ctr"][C_OVERFLOW, :KB] > 0) & validrow).sum()
-        n_expand = (r.lco[:KB] & validrow).sum()
-        at = torch.where(done, r.li, L).reshape(1)
-        r.stats.index_copy_(0, at, torch.cat([
-            torch.stack([nl2, n_viol, faults, n_expand, gl2]),
-            nl2.new_zeros(3)])[None])
-        r.opar.index_copy_(0, at, r.lvp[None, :KB])
-        r.olane.index_copy_(0, at, r.lvlane[None, :KB])
+        validrow = torch.arange(KB, device=dev)[None, :] < nl2[:, None]
+        inv_ok = r.lin[:, :, :KB] | ~validrow[:, None, :]
+        n_viol = (~inv_ok).sum((1, 2))
+        faults = ((r.lv["ctr"][:, C_OVERFLOW, :KB] > 0) &
+                  validrow).sum(1)
+        n_expand = (r.lco[:, :KB] & validrow).sum(1)
+        at = torch.where(done, r.li, L)
+        zero = torch.zeros_like(nl2)
+        _jput_row(r.stats, at, torch.stack(
+            [nl2, n_viol, faults, n_expand, gl2, zero, zero, zero],
+            1)[:, None, :], 1)
+        _jput_row(r.opar, at, r.lvp[:, None, :KB], 1)
+        _jput_row(r.olane, at, r.lvlane[:, None, :KB], 1)
         for k, v in r.ost.items():
-            v.index_copy_(v.dim() - 2, at, r.lv[k][..., None, :KB])
-        r.oinv.index_copy_(1, at, inv_ok[:, None])
-        if n_hard is not None:
+            _jput_row(v, at, r.lv[k][..., None, :KB], v.dim() - 2)
+        _jput_row(r.oinv, at, inv_ok[:, :, None, :], 2)
+        if hard:
             hl = _hard_add(r.hard_l, torch.where(bail, 0, nh))
-            hc = torch.stack([r.hard[0] + hl[0], r.hard[1] + hl[1],
-                              torch.maximum(r.hard[2], hl[2])])
-            r.hard.copy_(torch.where(done, hc, r.hard))
-            r.hard_l.copy_(torch.where(done, 0, hl))
-        # the ring swap at a level boundary; rows past nl2 are stale
-        # but masked by nf and fm
+            hc = torch.cat([r.hard[..., :2] + hl[..., :2],
+                            torch.maximum(r.hard[..., 2:], hl[..., 2:])], -1)
+            r.hard.copy_(torch.where(done[:, None], hc, r.hard))
+            r.hard_l.copy_(torch.where(done[:, None], 0, hl))
+        # the ring swap at a level boundary; rows past nl2 are stale but
+        # masked by nf and fm
         for k, v in r.fr.items():
-            v.copy_(torch.where(done, r.lv[k][..., :KB], v))
-        r.fm.copy_(torch.where(done, r.lco[:KB] & validrow, r.fm))
+            v.copy_(torch.where(done.view((-1,) + (1,) * (v.dim() - 1)),
+                                r.lv[k][..., :KB], v))
+        r.fm.copy_(torch.where(done[:, None], r.lco[:, :KB] & validrow,
+                               r.fm))
         r.nf.copy_(torch.where(done, nl2, r.nf))
-        r.gd.copy_(torch.where(done, r.g + torch.arange(KB, device=dev),
-                               r.gd))
+        r.gd.copy_(torch.where(done[:, None], r.g[:, None] + torch.arange(
+            KB, device=dev)[None, :], r.gd))
         r.pg.copy_(torch.where(done, r.g, r.pg))
         r.g += torch.where(done, nl2, 0)
         r.done += torch.where(done, nl2, 0)
@@ -925,10 +1133,11 @@ class Engine:
         r.lv_left.fill_(lv_left)
         r.st_cap.fill_(st_cap)
         key = self._graph_key("burst", st)
+        jr = r.as_jobs()
         base = 0
         while True:
             for _ in range(max(1, -(-(nf - base) // B))):
-                self._graphs.run(key, lambda: self._burst_body(st, r))
+                self._graphs.run(key, lambda: self._burst_body(st, jr))
             got = torch.cat([
                 torch.stack([r.li, r.bail.long(), r.nf, r.viol.long(),
                              r.done, r.base]),
@@ -939,6 +1148,46 @@ class Engine:
         h, hb = self.hard_stats, got[6:9]
         self.hard_stats = [h[0] + hb[0], h[1] + hb[1], max(h[2], hb[2])]
         return got[:5], np.asarray(got[9:], np.int64).reshape(L, 8)
+
+    def burst_batched(self, r: _JobRing, graphs: GraphRunner,
+                      lv_left: np.ndarray, st_cap: np.ndarray):
+        """One batched dispatch over the loaded ring: every job runs up
+        to its ``lv_left`` levels and ``st_cap`` new states (int32 [J];
+        a job with lv_left 0 never enters the loop).  The host replays
+        the body k times, k the most chunks any running job has left in
+        its current level, then reads the loop state once, until no job
+        runs.  Returns the stats int64 [J, levels + 1, 8]: per-level rows
+        [n_lvl, n_viol, faults, n_expand, n_gen, 0, 0, 0] and a last row
+        [levels done, bail, n_front, viol_any, states done, 0, 0, 0] —
+        the reference's per-job stats matrix."""
+        B, L = self.chunk, self.burst_levels
+        for t in (r.base, r.nl, r.gl, r.li, r.done, r.bail, r.viol):
+            t.zero_()
+        r.lv_left.copy_(torch.from_numpy(np.asarray(lv_left, np.int32)))
+        r.st_cap.copy_(torch.from_numpy(np.asarray(st_cap, np.int32)))
+        lv = [int(x) for x in lv_left]
+        cap = [int(x) for x in st_cap]
+        nf = r.nf.tolist()
+        base = [0] * r.J
+        li = [0] * r.J
+        done = [0] * r.J
+        bail = viol = [False] * r.J
+        key = ("batched", r.J)
+        while True:
+            going = [j for j in range(r.J)
+                     if not bail[j] and not viol[j] and li[j] < lv[j]
+                     and nf[j] > 0 and done[j] < cap[j]]
+            if not going:
+                break
+            k = max(max(1, -(-(nf[j] - base[j]) // B)) for j in going)
+            for _ in range(k):
+                graphs.run(key, lambda: self._burst_body(None, r))
+            got = torch.stack([r.li, r.bail.long(), r.nf, r.viol.long(),
+                               r.done, r.base]).tolist()
+            li, bail, nf, viol, done, base = got
+        meta = torch.stack([r.li, r.bail.long(), r.nf, r.viol.long(),
+                            r.done] + [torch.zeros_like(r.li)] * 3, 1)
+        return torch.cat([r.stats[:, :L], meta[:, None, :]], 1).cpu().numpy()
 
     # ------------------------------------------------------------------
 

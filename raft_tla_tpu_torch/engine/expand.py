@@ -428,22 +428,53 @@ class Expander:
         return tuple(chunk * min(f.n_lanes, d.get(f.name, 2))
                      for f in self.families)
 
-    def guards_T(self, svT, derT) -> torch.Tensor:
-        """Batch-last frontier [..., B] -> ok bool [B, A]."""
-        if self.guard_matmul:
-            return self.guards_T_matmul(svT, derT)
-        return self.guards_T_terms(svT, derT)
+    # ---- runtime thresholds (the batched serving layer's padded
+    # ceilings).  The int8 guard matrix is shared per ceiling; what a
+    # job brings is device data: rt["thr"] int32 [A] (or [J, A]), the
+    # thresholds the product is compared with (every job's equal the
+    # ceiling's: they are conjunct counts), and rt["mask"] bool [A] (or
+    # [J, A]), the job's lane mask, ANDed in after the compare, so a
+    # masked lane never becomes a candidate.  With a [J, A] rt the
+    # frontier's B rows are J jobs' blocks of B/J rows, job-major, and
+    # the product stays one product over all of them.  rt=None is the
+    # baked-constant form, unchanged.
 
-    def guards_T_terms(self, svT, derT) -> torch.Tensor:
+    def runtime_thresholds(self):
+        """The ceiling's (thresholds, all-enabled mask) as host arrays:
+        the template a spec's ``serve_runtime`` starts from."""
+        return (np.asarray(self._gT, np.int32).copy(),
+                np.ones((self.n_lanes,), bool))
+
+    def _compare(self, acc, rt) -> torch.Tensor:
+        """acc int32 [B, A] -> ok bool [B, A] against the baked
+        thresholds or a job's (or J jobs') runtime data."""
+        if rt is None:
+            return acc == self._T[None, :]
+        thr, mask = rt["thr"], rt["mask"]
+        if thr.dim() == 1:
+            return (acc == thr[None, :]) & mask[None, :]
+        J, A = thr.shape
+        ok = (acc.view(J, -1, A) == thr[:, None, :]) & mask[:, None, :]
+        return ok.view(-1, A)
+
+    def guards_T(self, svT, derT, rt=None) -> torch.Tensor:
+        """Batch-last frontier [..., B] -> ok bool [B, A]; ``rt`` the
+        runtime thresholds above (None: the baked constants)."""
+        if self.guard_matmul:
+            return self.guards_T_matmul(svT, derT, rt)
+        return self.guards_T_terms(svT, derT, rt)
+
+    def guards_T_terms(self, svT, derT, rt=None) -> torch.Tensor:
         """The plain form: each lane's guard terms summed."""
         phi = self.kern.guard_features(svT, derT)              # [F, B]
         acc = (phi[self._gidx] * self._gw[:, :, None]).sum(
             1, dtype=I32)                                       # [A, B]
-        return (acc == self._T[:, None]).T
+        return self._compare(acc.T, rt)
 
-    def guards_T_matmul(self, svT, derT) -> torch.Tensor:
+    def guards_T_matmul(self, svT, derT, rt=None) -> torch.Tensor:
         """The guard grid as one integer product φ [B, F] × W [F, A]
-        with int32 accumulation, then the exact compare with T.  On the
+        with int32 accumulation, then the exact compare with T (or the
+        runtime thresholds, and the lane mask).  On the
         card: ``torch._int_mm`` over int8, with F and A zero-padded to
         multiples of 8 (its shape rules) and B to a multiple of 32: on
         the H100, cuBLASLt refused B padded to 24 or 104 rows
@@ -461,46 +492,56 @@ class Expander:
             acc = torch._int_mm(x, self._W8)[:B, :A]
         else:
             acc = phi.T @ self._W32
-        return acc == self._T[None, :]
+        return self._compare(acc, rt)
 
     # ---- fixed-width materialization ---------------------------------
 
-    def _plan(self, B: int, fam_caps):
-        """The static compaction tables for a B-row chunk and the caps:
-        the family-major permutation of the flat lane grid, each grouped
-        lane's family, cap and slice offset, and the block ends."""
-        key = (B, tuple(fam_caps))
+    def _plan(self, B: int, fam_caps, jobs: int = 1):
+        """The static compaction tables for ``jobs`` blocks of B rows
+        each and the per-job caps: the permutation of the flat lane
+        grid into (family, job) groups, family-major, each grouped
+        lane's group, cap and slice offset, and the group ends.  A
+        family's slices of every job sit side by side, so its kernel
+        runs once over all of them."""
+        key = (B, tuple(fam_caps), jobs)
         if key in self._plans:
             return self._plans[key]
-        A, dev = self.n_lanes, self.device
+        A, dev, J = self.n_lanes, self.device, jobs
         n_fams = len(self.families)
-        perm = np.empty((B * A,), np.int64)          # grouped -> flat
-        f_of = np.empty((B * A,), np.int64)
-        blk_start = np.empty((n_fams,), np.int64)
+        perm = np.empty((J * B * A,), np.int64)      # grouped -> flat
+        f_of = np.empty((J * B * A,), np.int64)      # grouped -> group
+        grp_start = np.empty((n_fams * J,), np.int64)
+        cap_g = np.empty((n_fams * J,), np.int64)
+        coff_g = np.empty((n_fams * J,), np.int64)
         caps_np = np.asarray(fam_caps, np.int64)
-        coff = np.concatenate([[0], np.cumsum(caps_np)[:-1]])
+        coff = np.concatenate([[0], np.cumsum(caps_np)[:-1]]) * J
         g = 0
         for fi, fam in enumerate(self.families):
             nf, off = fam.n_lanes, int(self.lane_off[fi])
-            blk_start[fi] = g
-            perm[g:g + B * nf] = (np.arange(B)[:, None] * A + off +
-                                  np.arange(nf)[None, :]).reshape(-1)
-            f_of[g:g + B * nf] = fi
-            g += B * nf
+            for j in range(J):
+                gi = fi * J + j
+                grp_start[gi] = g
+                cap_g[gi] = caps_np[fi]
+                coff_g[gi] = coff[fi] + j * caps_np[fi]
+                perm[g:g + B * nf] = (
+                    (j * B + np.arange(B))[:, None] * A + off +
+                    np.arange(nf)[None, :]).reshape(-1)
+                f_of[g:g + B * nf] = gi
+                g += B * nf
 
         def t(a, dt=torch.int64):
             return torch.from_numpy(np.asarray(a)).to(dev, dt)
 
         plan = dict(
             perm=t(perm), f_of=t(f_of),
-            ends=t(np.concatenate([blk_start[1:], [B * A]]) - 1),
-            cap_p=t(caps_np[f_of]), coff_p=t(coff[f_of]),
-            coff=[int(c) for c in coff], totc=int(caps_np.sum()))
+            ends=t(np.concatenate([grp_start[1:], [J * B * A]]) - 1),
+            cap_p=t(cap_g[f_of]), coff_p=t(coff_g[f_of]),
+            coff=[int(c) for c in coff], totc=int(caps_np.sum()) * J)
         self._plans[key] = plan
         return plan
 
     def materialize(self, svT, derT, okf, epos, fcap: int, fam_caps,
-                    delta_fp=None):
+                    delta_fp=None, jobs: Optional[int] = None):
         """The candidate buffer [..., fcap] of the enabled lanes, in
         enumeration order.  svT/derT are batch-last [..., B]; okf is the
         flat [B*A] enabled mask (b-major), epos each flat lane's buffer
@@ -515,11 +556,18 @@ class Expander:
         family also computes its candidates' per-permutation hashes
         incrementally from the parent tables (``family_delta``), and
         the result is (cand, counts, fp) with the sealed canonical
-        fingerprints fp [n_streams, fcap]."""
+        fingerprints fp [n_streams, fcap].
+
+        jobs — J jobs' chunks at once (the batched serving burst): the
+        rows are J job-major blocks, ``fam_caps`` are each job's caps,
+        ``fcap`` covers all J buffers and ``epos`` places each job's
+        lanes in its own; counts come back int32 [J, n_fams]."""
         A = self.n_lanes
-        B = okf.shape[0] // A
-        pl = self._plan(B, fam_caps)
+        J = 1 if jobs is None else int(jobs)
+        B = okf.shape[0] // A // J
+        pl = self._plan(B, fam_caps, J)
         totc, coff = pl["totc"], pl["coff"]
+        fam_caps = [J * c for c in fam_caps]
 
         # ---- one compaction for every family: the lane grid family-
         # major, one cumsum, each family's slice position from it
@@ -527,15 +575,15 @@ class Expander:
         cum = torch.cumsum(okg.to(I32), 0)
         cum_end = cum[pl["ends"]]
         cum_start = torch.cat([cum_end.new_zeros(1), cum_end[:-1]])
-        counts = cum_end - cum_start                 # [n_fams]
+        counts = cum_end - cum_start                 # [n_fams * J]
         wpos = cum - 1 - cum_start[pl["f_of"]]
         fits = okg & (wpos < pl["cap_p"])
         target = torch.where(fits, pl["coff_p"] + wpos, totc)
         # slice column -> flat lane (column totc takes the misfits)
-        src = torch.full((totc + 1,), B * A, dtype=torch.int64,
+        src = torch.full((totc + 1,), J * B * A, dtype=torch.int64,
                          device=okf.device)
         src.scatter_(0, target, pl["perm"])
-        srcc = src[:totc].clamp(0, B * A - 1)
+        srcc = src[:totc].clamp(0, J * B * A - 1)
         b_all, l_all = srcc // A, srcc % A
         # buffer position -> slice column; only fitting lanes write
         epos_g = epos[pl["perm"]].long()
@@ -614,6 +662,8 @@ class Expander:
                                                 sv_rows, sv2, prm))
         cand = {k: torch.cat([o[k] for o in outs], -1)[..., take]
                 for k in self.keys}
+        if jobs is not None:
+            counts = counts.view(-1, J).T
         if delta_fp is None:
             return cand, counts
         h_all = torch.cat(fp_outs, -1)[..., take]

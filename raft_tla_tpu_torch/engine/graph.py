@@ -45,13 +45,14 @@ class GraphRunner:
     captured graph's replay on a CUDA device (``capture`` False keeps
     the card eager, for the tests and timings that hold the graph
     against the program it captured).  ``obs`` is the run's
-    observability bundle, whose ``compile`` span times each warm-up and
-    capture."""
+    observability bundle, whose ``span`` (``compile``; the serving
+    layer's ``bucket_compile``) times each warm-up and capture."""
 
     def __init__(self, device: torch.device, capture: bool = True,
-                 obs=None):
+                 obs=None, span: str = "compile"):
         self.device = device
         self.obs = obs if obs is not None else NULL_OBS
+        self.span = span
         self.capture = capture and device.type == "cuda"
         self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, int]] = {}
         self._pool = None
@@ -79,7 +80,7 @@ class GraphRunner:
         PROBE_CLAIM_LAUNCHES.count += held
 
     def _warm_and_capture(self, key: Hashable, fn: Callable[[], None]):
-        with self.obs.span("compile"):
+        with self.obs.span(self.span):
             cur = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(cur)

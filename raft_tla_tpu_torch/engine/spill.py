@@ -215,7 +215,8 @@ class SpillEngine(Engine):
                  sym_canon: str = "auto",
                  incremental_fp: bool = True,
                  hcap: Optional[int] = None,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 dedup_kernel: str = "auto"):
         super().__init__(cfg, chunk=chunk, store_states=store_states,
                          lcap=seg, vcap=vcap, fcap=fcap, ocap=ocap,
                          incremental_fp=incremental_fp, burst=burst,
@@ -223,7 +224,8 @@ class SpillEngine(Engine):
                          hcap=hcap, guard_matmul=guard_matmul,
                          delta_matmul=delta_matmul,
                          fam_density=fam_density,
-                         archive_dir=archive_dir, device=device)
+                         archive_dir=archive_dir, device=device,
+                         dedup_kernel=dedup_kernel)
         self.SEGL = self.LCAP          # level segment rows (can grow)
         self.SEGF = self.LCAP          # frontier segment rows (fixed)
         self.sync_every = max(1, int(sync_every))

@@ -51,8 +51,11 @@ def runtime_bounds(cfg) -> np.ndarray:
 
 def _rb(rtb, idx: int, static):
     """One bound: the runtime vector's entry when present, else the
-    config constant."""
-    return static if rtb is None else int(rtb[idx])
+    config constant.  ``rtb`` is an int32 tensor, [NB] (one job: a 0-d
+    bound) or [NB, N] (a bound per row: the batched serving burst's
+    rows of several jobs); either broadcasts against batch-last rows,
+    and neither is read back to the host."""
+    return static if rtb is None else rtb[idx]
 
 
 class Predicates:
@@ -368,10 +371,10 @@ class Predicates:
             return fn
         return lambda sv, der, rtb=None: fn(sv, der)
 
-    def check_T(self, svT, inv_names, con_names):
+    def check_T(self, svT, inv_names, con_names, rtb=None):
         """The named invariants and the conjunction of the named
         constraints on batch-last rows [..., N]: (inv bool [n_inv, N],
-        con bool [N])."""
+        con bool [N]); ``rtb`` the runtime bounds (``_rb``)."""
         der = self.kern.derived(svT)
         N = svT["ct"].shape[-1]
         dev = svT["ct"].device
@@ -381,7 +384,7 @@ class Predicates:
                                          device=dev)
         con = torch.ones(N, dtype=torch.bool, device=dev)
         for nm in con_names:
-            con = con & self.constraint_fn(nm)(svT, der)
+            con = con & self.constraint_fn(nm)(svT, der, rtb)
         return inv, con
 
     def action_fn(self, name: str) -> Callable:

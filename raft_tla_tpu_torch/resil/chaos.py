@@ -18,10 +18,12 @@ Spec grammar (';'-separated clauses)::
     <site>:p=0.25               fire with probability p (seeded hash of
                                 the hit counter — deterministic)
 
-Sites (each names one injection point in the engines; this package's
-engine fires ``dispatch``, ``ckpt_torn``, ``ckpt_corrupt`` and
-``archive`` — the other three belong to engines not ported yet, and
-their names are kept so a spec is valid in both packages)::
+Sites (each names one injection point in the engines; this package
+fires ``dispatch``, ``ckpt_torn``, ``ckpt_corrupt``, ``archive``,
+``host_table`` (the spill engine's host table) and ``wave_kill`` (the
+batched serving waves, ``serve/batch.py``) — ``intake`` belongs to the
+daemon, not ported yet, and its name is kept so a spec is valid in
+both packages)::
 
     dispatch    raised at the top of every engine level/burst loop
                 iteration — a dispatch-time device error

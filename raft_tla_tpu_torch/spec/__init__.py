@@ -109,6 +109,20 @@ class SpecIR:
     u32_keys: Tuple[str, ...] = ()
     # bumped on IR-structure changes (the reference's field)
     version: int = 1
+    # cfg -> (ceiling cfg, bucket params {chunk, vcap, burst_levels}):
+    # the batched serving layer (``serve/batch.py``) groups jobs by it;
+    # constraint-guarded bounds pad up the ``pad_rung`` ladder so jobs
+    # of different bounds share one bucket, which ``serve_runtime``
+    # keeps exact.  None: every job buckets by its own config.
+    serve_bucket: Optional[Callable] = None
+    # (ceiling expander, job cfg) -> the job's runtime data under the
+    # ceiling: {"thr": int32 [A] guard thresholds, "mask": bool [A]
+    # lane mask, "bounds": int32 [NB] search bounds} (host numpy; the
+    # batched burst stacks them on a leading [J] axis as device data).
+    # Masked lanes generate no candidates, so the surviving stream is
+    # the job's own enumeration order, and the Bounded* constraints
+    # read the job's own bounds.  None: ceilings are exact as they are.
+    serve_runtime: Optional[Callable] = None
 
     @property
     def all_keys(self) -> Tuple[str, ...]:
@@ -131,6 +145,19 @@ class SpecIR:
             list(self.view_keys), list(self.nonview_keys),
         ], separators=(",", ":"))
         return hashlib.sha256(desc.encode()).hexdigest()[:12]
+
+
+def pad_rung(v: int, floor: int = 1) -> int:
+    """The serving ceiling ladder: ``v`` rounded up to the next power of
+    two, never below ``floor`` (the reference's ``spec.pad_rung``).
+    Every spec's ``serve_bucket`` rounds onto it, so two jobs whose
+    bounds share a rung share a bucket.  Raft pads with floor 4 (a
+    padded bound only widens bit-packed fields), paxos with floor 2
+    (its ballots and values multiply the message universe)."""
+    v = max(int(v), int(floor))
+    if v <= 1:
+        return max(v, 0)
+    return 1 << (v - 1).bit_length()
 
 
 def _build_raft() -> SpecIR:

@@ -134,6 +134,45 @@ def sim_progress(kern, lay):
     return score
 
 
+def serve_bucket(cfg):
+    """The bucket ceiling of a paxos job (the reference's
+    ``spec/paxos/ir.serve_bucket``): ballots and values pad up the
+    ``pad_rung`` ladder with floor 2, instances with floor 1, so sweeps
+    over those constants share one bucket.  Each job's own bounds become
+    its lane mask (``serve_runtime``): a padded ballot, value or
+    instance lane never fires, so no out-of-bounds message is sent and
+    padded instances stay at their init cells.  The acceptor count is
+    structural and stays exact."""
+    from .. import pad_rung
+    ceiling = cfg.with_(n_ballots=pad_rung(cfg.n_ballots, floor=2),
+                        n_values=pad_rung(cfg.n_values, floor=2),
+                        n_instances=pad_rung(cfg.n_instances))
+    return ceiling, dict(chunk=128, vcap=1 << 15, burst_levels=8)
+
+
+def serve_runtime(expander, cfg):
+    """A paxos job's runtime data under its ceiling's expander: the
+    ceiling's thresholds, and the lane mask that holds the job's bounds
+    (each lane's instance, ballot and value inside the job's; the
+    acceptor parameter is never masked).  Paxos has no search bounds."""
+    I, B, V = cfg.n_instances, cfg.n_ballots, cfg.n_values
+    thr, mask = expander.runtime_thresholds()
+    in_bounds = {
+        "Phase1a": lambda i, b: i < I and b < B,
+        "Phase1b": lambda i, a, b: i < I and b < B,
+        "Phase2a": lambda i, b, v: i < I and b < B and v < V,
+        "Phase2b": lambda i, a, b, v: i < I and b < B and v < V,
+    }
+    lane = 0
+    for fam in expander.families:
+        ok = in_bounds[fam.name]
+        for vals in zip(*fam.params) if fam.params else [()]:
+            mask[lane] = ok(*(int(v) for v in vals))
+            lane += 1
+    assert lane == expander.n_lanes
+    return dict(thr=thr, mask=mask, bounds=np.zeros((0,), np.int32))
+
+
 def build_ir() -> SpecIR:
     from . import layout as codec
     from .config import PaxosConfig
@@ -185,4 +224,6 @@ def build_ir() -> SpecIR:
         sim_progress=sim_progress,
         default_config=PaxosConfig,
         u32_keys=U32_KEYS["paxos"],
+        serve_bucket=serve_bucket,
+        serve_runtime=serve_runtime,
     )

@@ -85,10 +85,11 @@ class PaxosPredicates:
             f"unknown action constraint {name!r} for spec 'paxos' — "
             "paxos declares none")
 
-    def check_T(self, svT, inv_names, con_names):
+    def check_T(self, svT, inv_names, con_names, rtb=None):
         """The named invariants on batch-last rows [..., R], and the
         (empty) constraint conjunction: (inv bool [n_inv, R], con bool
-        [R])."""
+        [R]).  ``rtb`` (runtime bounds) is accepted for the engines'
+        uniform call and unused: paxos has no search bounds."""
         fns = [self.invariant_fn(nm) for nm in inv_names]
         for nm in con_names:
             self.constraint_fn(nm)

@@ -282,6 +282,76 @@ def sim_progress(kern, lay):
     return score
 
 
+# The constraint that guards each search bound: a bound pads up to the
+# serving ceiling only while its constraint is active.  Without it the
+# bound is load-bearing in the kernels' representability clamps, and
+# padding it would change the reachable set.
+_BOUND_CONSTRAINTS = {
+    "max_log_length": "BoundedLogSize",
+    "max_restarts": "BoundedRestarts",
+    "max_timeouts": "BoundedTimeouts",
+    "max_terms": "BoundedTerms",
+    "max_client_requests": "BoundedClientRequests",
+    "max_tried_membership_changes": "BoundedTriedMembershipChanges",
+    "max_membership_changes": "BoundedMembershipChanges",
+}
+
+
+def serve_bucket(cfg):
+    """The bucket ceiling of a raft job (the reference's
+    ``spec/raft_ir.serve_bucket``): every constraint-guarded bound pads
+    up the ``pad_rung`` ladder (floor 4), so jobs of different bounds
+    under the stock constraints share one bucket.  The guard matrix,
+    the delta group and the packed layout take the ceiling's widths;
+    each job's own bounds reach the constraints through
+    ``serve_runtime``.  Bounds without their constraint, the structural
+    constants and ``max_trace`` (the BoundedTrace invariant's) stay
+    exact.  The params size a small job's ring (4 chunks of 128 rows)
+    and its 2^15-slot visited table."""
+    from . import pad_rung
+    from ..config import Bounds
+    b = cfg.bounds
+    cons = set(cfg.constraints)
+
+    def pad(name):
+        v = getattr(b, name)
+        return pad_rung(v, floor=4) if _BOUND_CONSTRAINTS[name] in cons \
+            else v
+
+    ceiling_bounds = Bounds(
+        max_log_length=pad("max_log_length"),
+        max_restarts=pad("max_restarts"),
+        max_timeouts=pad("max_timeouts"),
+        max_client_requests=pad("max_client_requests"),
+        max_membership_changes=pad("max_membership_changes"),
+        max_terms=pad("max_terms"),
+        max_tried_membership_changes=pad(
+            "max_tried_membership_changes"),
+        max_trace=b.max_trace)
+    kw = {}
+    if ceiling_bounds != b:
+        kw["bounds"] = ceiling_bounds
+    if cfg.max_inflight_override is not None and \
+            "BoundedInFlightMessages" in cons:
+        # the override is a real bound (its bag slots shape the layout);
+        # the derived 2*S^2 default is a formula over |Server|
+        padded = pad_rung(cfg.max_inflight_override)
+        if padded != cfg.max_inflight_override:
+            kw["max_inflight_override"] = padded
+    ceiling = cfg.with_(**kw) if kw else cfg
+    return ceiling, dict(chunk=128, vcap=1 << 15, burst_levels=8)
+
+
+def serve_runtime(expander, cfg):
+    """A raft job's runtime data under its ceiling's expander: the
+    ceiling's guard thresholds, every lane enabled (raft lane grids are
+    structural: servers, values, bag slots) and the job's own search
+    bounds for the constraints."""
+    from ..ops.vpredicates import runtime_bounds
+    thr, mask = expander.runtime_thresholds()
+    return dict(thr=thr, mask=mask, bounds=runtime_bounds(cfg))
+
+
 def build_ir() -> SpecIR:
     from ..models import predicates as OP
     from ..models.explore import _walk_key, explore
@@ -334,4 +404,6 @@ def build_ir() -> SpecIR:
         default_config=ModelConfig,
         u32_keys=U32_KEYS["raft"],
         version=1,
+        serve_bucket=serve_bucket,
+        serve_runtime=serve_runtime,
     )

@@ -231,3 +231,51 @@ def test_obs_report_imports_without_jax_and_does_no_work():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_serve_modules_import_without_jax_and_refuse_without_cuda():
+    """The batched serving slice's modules (jobs, cache, wave state, the
+    bucket engine, the scheduler) and the modules it changed import with
+    JAX and the JAX package blocked, the package walk reaches them,
+    importing them initialises no CUDA, and the entry points refuse to
+    start without CUDA unless asked for the CPU."""
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import torch
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.serve"] + [
+            "raft_tla_tpu_torch.serve." + m for m in (
+                "jobs", "cache", "wavestate", "batch", "scheduler")]
+        changed = ["raft_tla_tpu_torch." + m for m in (
+            "cli", "engine.bfs", "engine.expand", "engine.graph",
+            "engine.spill", "ops.vpredicates", "spec", "spec.raft_ir",
+            "spec.paxos.ir", "spec.paxos.vpredicates", "resil.chaos")]
+        assert set(new) <= names, sorted(set(new) - names)
+        for n in new + changed:
+            __import__(n)
+        assert not torch.cuda.is_initialized()
+        from raft_tla_tpu_torch.config import Bounds, ModelConfig
+        from raft_tla_tpu_torch.serve import BucketEngine, Job, run_jobs
+        cfg = ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
+                          bounds=Bounds.make(max_log_length=1))
+        for start in (lambda: BucketEngine(cfg),
+                      lambda: run_jobs([Job(cfg, max_depth=1)])):
+            try:
+                start()
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e)
+            else:
+                raise AssertionError("serving started without CUDA")
+        BucketEngine(cfg, device="cpu")
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr
