@@ -196,10 +196,32 @@ Phases (any failure exits non-zero before the final line):
  19. BASELINE config #4 (the apalache variant) to depth 10 against
      baseline_runs/config4.json, and the ``LeaderCompleteness_false``
      hunt from the ConcurrentLeaders witness, its witness replayed by
-     the oracle and equal to the oracle's own.
+     the oracle and equal to the oracle's own;
+ 20. the daemon (``serve``) on the card: (a) an in-process ``Daemon``
+     over a spool of twelve of phase 18's jobs (raft and paxos, two
+     witnesses, one solo fallback), a torn and a malformed file, then a
+     duplicate in a second cycle, then the idle drain: every result ==
+     ``BATCH_PINS``, the duplicate a cache hit with 0 dispatches, both
+     bad files rejected with a reason, each done/ marker after its
+     result, the dedup kernel's launches == one per job slot per
+     batched step plus the fallback's own, one ledger ``intake`` row
+     per claim or rejection and one ``daemon`` row per cycle; (b) the
+     first cycle again in a fresh daemon with an executable cache:
+     misses == store failures == graph captures, no store, no hit, no
+     entry file, each reason "backend cannot serialize executables
+     (..."; (c) ``python -m raft_tla_tpu_torch serve`` as a process
+     with one deep raft job, SIGTERMed after its first batched
+     dispatch (its second faults by ``--chaos dispatch:at=2`` and the
+     cycle backs off, so the signal lands with work left): exit 0,
+     heartbeat ``done``, registry ``cmd=serve`` status ``draining``,
+     the claim and the ``.wave.npz`` kept; (d) ``serve --chaos
+     wave_kill:at=1 --retries 0`` exits 3 with both kept; a new
+     ``serve`` on each of (c)'s and (d)'s spools recovers the claim,
+     resumes the job from its wave state (a ``wave_resume`` row) and
+     answers as the pin.
 
-``python3 chip_smoke.py --phase 15`` (or 16, 17, 18, 19) runs phases 1,
-2 and that phase alone and prints no result line.
+``python3 chip_smoke.py --phase 15`` (or 16, 17, 18, 19, 20) runs phases
+1, 2 and that phase alone and prints no result line.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -2747,10 +2769,8 @@ def _untimed(rep, drop=()):
             if k not in BATCH_TIMING and k not in drop}
 
 
-def _check_batch_answers(reps, tag):
-    """Every job's report against the reference's solo answer."""
-    check([r["label"] for r in reps] == [j["label"] for j in BATCH_JOBS],
-          f"{tag}: report order {[r['label'] for r in reps]}")
+def _check_pins(reps, tag):
+    """Each report against its job's pinned solo answer."""
     for r in reps:
         want = BATCH_PINS[r["label"]]
         got = (r["distinct_states"], r["generated_states"], r["depth"],
@@ -2758,6 +2778,13 @@ def _check_batch_answers(reps, tag):
                [(d["invariant"], d["state_id"], d.get("trace"))
                 for d in r["violations_detail"]])
         check(got == want, f"{tag} {r['label']}: {got} != {want}")
+
+
+def _check_batch_answers(reps, tag):
+    """Every job's report against the reference's solo answer."""
+    check([r["label"] for r in reps] == [j["label"] for j in BATCH_JOBS],
+          f"{tag}: report order {[r['label'] for r in reps]}")
+    _check_pins(reps, tag)
 
 
 def _batch_idle_share(torch, jobs, wall_of):
@@ -2793,14 +2820,22 @@ def _batch_idle_share(torch, jobs, wall_of):
                 device_idle_share=1.0 - busy_us / 1e6 / wall)
 
 
+def _batch_jobs(here):
+    """BATCH_JOBS by label, their cfg paths rooted at the checkout."""
+    jobs = {}
+    for j in BATCH_JOBS:
+        j = dict(j)
+        if j["spec"] == "raft":
+            j["config"] = os.path.join(here, j["config"])
+        jobs[j["label"]] = j
+    return jobs
+
+
 def batch_phase(torch, fp, here, tmp, card):
     """Phase 18 (a-c): the serving sweep through ``batch``; its cache;
     a killed and resumed run."""
     ctr = fp.PROBE_CLAIM_LAUNCHES
-    jobs = [dict(j) for j in BATCH_JOBS]
-    for j in jobs:
-        if j["spec"] == "raft":
-            j["config"] = os.path.join(here, j["config"])
+    jobs = list(_batch_jobs(here).values())
     path = os.path.join(tmp, "jobs.jsonl")
     with open(path, "w") as fh:
         fh.write("\n".join(json.dumps(j) for j in jobs) + "\n")
@@ -3001,6 +3036,393 @@ def serving_phase(torch, fp, cvt, home_slots, here, card):
     return dict(sweep=a, idle=idle, kernel=d, wall=wall)
 
 
+# Phase 20: the daemon (``serve``) over phase 18's job shapes: twelve of
+# BATCH_JOBS (raft and paxos, two with violations and witnesses, one
+# solo fallback), then a duplicate in a second cycle; the deep job of the
+# drain and the kill.
+SERVE_JOBS = ("r121d10", "r122d11", "r231d11", "r331d10", "r113d5",
+              "r232d11", "fbl-r121", "big-r122d14", "p11", "p21", "p22d8",
+              "vc-p22")
+SERVE_DUP = "p21"
+SERVE_DEEP = "r121d11"
+
+
+@contextlib.contextmanager
+def _serve_probe():
+    """Record what the serving layer runs: each wave's labels, the width
+    JP of each batched step (one dedup launch per job slot, eager
+    warm-up or replay alike), each solo fallback's dedup launches, and
+    the bucket engines built."""
+    from raft_tla_tpu_torch.engine import graph as eg
+    from raft_tla_tpu_torch.serve import batch as sb
+    from raft_tla_tpu_torch.serve import scheduler as ss
+    from raft_tla_tpu_torch.engine.fingerprint import PROBE_CLAIM_LAUNCHES
+    rec = dict(waves=[], steps=[], solo=[], engines=[])
+    run, wave, solo = (eg.GraphRunner.run, sb.BucketEngine.run_wave,
+                       ss._run_solo)
+    init = sb.BucketEngine.__init__
+
+    def rec_run(self, key, fn):
+        if isinstance(key, tuple) and key[0] == "batched":
+            rec["steps"].append(key[1])
+        return run(self, key, fn)
+
+    def rec_wave(self, runs, *a, **kw):
+        rec["waves"].append([r.job.label for r in runs])
+        return wave(self, runs, *a, **kw)
+
+    def rec_solo(job, *a, **kw):
+        c0 = PROBE_CLAIM_LAUNCHES.count
+        out = solo(job, *a, **kw)
+        rec["solo"].append((job.label, PROBE_CLAIM_LAUNCHES.count - c0))
+        return out
+
+    def rec_init(self, *a, **kw):
+        init(self, *a, **kw)
+        rec["engines"].append(self)
+
+    eg.GraphRunner.run, sb.BucketEngine.run_wave = rec_run, rec_wave
+    ss._run_solo, sb.BucketEngine.__init__ = rec_solo, rec_init
+    try:
+        yield rec
+    finally:
+        eg.GraphRunner.run, sb.BucketEngine.run_wave = run, wave
+        ss._run_solo, sb.BucketEngine.__init__ = solo, init
+
+
+def _read_json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _spool_results(spool):
+    d = os.path.join(spool, "results")
+    return {fn[:-5]: _read_json(os.path.join(d, fn))
+            for fn in sorted(os.listdir(d))}
+
+
+def _serve_cli(argv):
+    """``serve`` through the CLI in this process; the daemon installs
+    its SIGTERM/SIGINT handlers, which are put back after."""
+    import signal
+    saved = {sg: signal.getsignal(sg) for sg in (signal.SIGTERM,
+                                                  signal.SIGINT)}
+    try:
+        rc, out, err, _seen = cli_run(argv)
+    finally:
+        for sg, h in saved.items():
+            signal.signal(sg, h)
+    return rc, out, err
+
+
+def _daemon_service(torch, fp, jobs, tmp, card, exec_cache=False):
+    """20a (20b with ``exec_cache``): an in-process daemon on the card
+    over a spool of SERVE_JOBS, a torn and a malformed file, then (20a)
+    a duplicate in a second cycle, then the idle drain."""
+    from raft_tla_tpu_torch.obs import Heartbeat, Obs, RunLedger
+    from raft_tla_tpu_torch.serve import Daemon, ExecCache, ResultCache
+    tag = "20b" if exec_cache else "20a"
+    spool = os.path.join(tmp, tag)
+    led = os.path.join(tmp, tag + ".jsonl")
+    ec = ExecCache(os.path.join(tmp, tag + "-exec")) if exec_cache \
+        else None
+    obs = Obs(ledger=RunLedger(led),
+              heartbeat=Heartbeat(os.path.join(tmp, tag + ".hb")),
+              run_info={"cmd": "serve"}, device="cuda")
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    t0 = time.perf_counter()
+    with _serve_probe() as rec:
+        d = Daemon(spool, cache=ResultCache(os.path.join(spool, "cache")),
+                   wave_state=os.path.join(spool, "waves"),
+                   exec_cache=ec, obs=obs, poll_s=0.0, max_idle_polls=2,
+                   grace_s=0.0, sleep=lambda s: None, device="cuda")
+        for k, label in enumerate(SERVE_JOBS):
+            # the client protocol: write-then-rename, trailing newline
+            d.intake.submit(jobs[label], f"{k:02d}-{label}")
+        inc = d.intake.dirs["incoming"]
+        with open(os.path.join(inc, "90-torn.json"), "w") as fh:
+            fh.write(json.dumps(jobs["p11"]))
+        with open(os.path.join(inc, "91-malformed.json"), "w") as fh:
+            fh.write('{"spec": "paxos", "ballots": 2\n')
+        ctr.reset()
+        rep1 = d.run_cycle()
+        launches = ctr.count
+        rep2 = None
+        if not exec_cache:
+            d.intake.submit(jobs[SERVE_DUP], "99-dup")
+            rep2 = d.run_cycle()
+        rc = d.run()
+    wall = time.perf_counter() - t0
+    check(rc == 0 and d._drain == "idle for 2 polls",
+          f"{tag}: daemon exit {rc}, drain {d._drain!r}")
+    res = _spool_results(spool)
+    names = [f"{k:02d}-{lbl}" for k, lbl in enumerate(SERVE_JOBS)]
+    check(sorted(res) == sorted(names + ([] if exec_cache else
+                                         ["99-dup"])),
+          f"{tag}: results {sorted(res)}")
+    _check_pins([res[n] for n in names], tag)
+    check(all(res[n]["dedup_kernel"] == 1 for n in names),
+          f"{tag}: a result without the kernel")
+    fell = sorted(r["label"] for r in res.values()
+                  if r["status"] == "fallback")
+    check(fell == ["big-r122d14"], f"{tag}: fallbacks {fell}")
+    traced = sorted(r["label"] for r in res.values() if any(
+        "trace" in v for v in r["violations_detail"]))
+    check(traced == ["fbl-r121", "vc-p22"], f"{tag}: witnesses {traced}")
+    rej = sorted(os.listdir(os.path.join(spool, "rejected")))
+    check(rej == ["90-torn.json", "90-torn.json.reason",
+                  "91-malformed.json", "91-malformed.json.reason"],
+          f"{tag}: rejected {rej}")
+    torn = open(os.path.join(spool, "rejected",
+                             "90-torn.json.reason")).read()
+    check(torn.startswith("torn/incomplete job file (no trailing "
+                          "newline"), f"{tag}: torn reason {torn!r}")
+    done = os.path.join(spool, "done")
+    check(sorted(os.listdir(done)) == sorted(n + ".json" for n in res),
+          f"{tag}: done markers")
+    for n in res:
+        check(os.stat(os.path.join(done, n + ".json")).st_mtime_ns >=
+              os.stat(os.path.join(spool, "results",
+                                   n + ".json")).st_mtime_ns,
+              f"{tag}: the marker of {n} is older than its result")
+    check(os.listdir(os.path.join(spool, "claimed")) == [],
+          f"{tag}: claims left")
+    # the dedup kernel: one launch per job slot per batched step, plus
+    # the solo fallbacks' own
+    batched = sum(rec["steps"])
+    solo = sum(n for _l, n in rec["solo"])
+    check(launches == batched + solo and batched > 0 and
+          [lbl for lbl, _n in rec["solo"]] == ["big-r122d14"] and
+          solo > 0,
+          f"{tag}: launches {launches} != {batched} batched + {solo} "
+          f"solo ({rec['solo']})")
+    captures = sum(be._graphs.captures for be in d.sched._engines.values())
+    replays = sum(be._graphs.replays for be in d.sched._engines.values())
+    check(captures > 0 and replays > 0,
+          f"{tag}: {captures} captures, {replays} replays")
+    rows = _ledger_rows(led)
+    intake = [(r["action"], r["name"]) for r in rows
+              if r.get("kind") == "intake"]
+    cycles = [r for r in rows if r.get("kind") == "daemon"]
+    want_claims = names + ([] if exec_cache else ["99-dup"])
+    check(sorted(n for a, n in intake if a == "claimed") ==
+          sorted(want_claims) and
+          sorted(n for a, n in intake if a == "rejected") ==
+          ["90-torn", "91-malformed"],
+          f"{tag}: intake rows {intake}")
+    check([r["cycle"] for r in cycles] ==
+          ([1] if exec_cache else [1, 2]), f"{tag}: daemon rows {cycles}")
+    out = dict(jobs=len(res), waves=len(rec["waves"]),
+               wave_sizes=[len(w) for w in rec["waves"]],
+               buckets=rep1.meta["buckets"],
+               dispatches=rep1.meta["batch_dispatches"],
+               batched_steps=len(rec["steps"]), launches=launches,
+               launches_batched=batched, launches_solo=solo,
+               captures=captures, replays=replays, wall_s=wall,
+               cycle1_s=rep1.meta["seconds"])
+    if exec_cache:
+        st = ec.stats()
+        check(st["exec_cache_misses"] == captures and
+              st["exec_cache_stores"] == 0 and
+              st["exec_cache_hits"] == 0 and
+              st["exec_cache_store_failures"] == captures,
+              f"20b: exec cache {st} against {captures} captures")
+        check(all(r.startswith("backend cannot serialize executables (")
+                  for r in st["exec_cache_store_fail_reasons"]),
+              f"20b: reasons {st['exec_cache_store_fail_reasons']}")
+        check(os.listdir(ec.path) == [], "20b: an entry was written")
+        check(rep1.meta["exec_cache_store_failures"] == captures,
+              f"20b: the cycle's meta {rep1.meta}")
+        ecr = [r for r in rows if r.get("kind") == "exec_cache"]
+        check(len(ecr) == 1 and ecr[0]["exec_cache_hits"] == 0,
+              f"20b: exec_cache rows {ecr}")
+        out["exec_cache"] = {k: v for k, v in st.items()
+                             if not k.endswith("_reasons")}
+        out["exec_cache_fail_reason"] = \
+            st["exec_cache_store_fail_reasons"][-1]
+    else:
+        dup = res["99-dup"]
+        check(dup["status"] == "cache_hit" and
+              rep2.meta["batch_dispatches"] == 0 and
+              rep2.meta["cache_hits"] == 1 and
+              cycles[1]["batch_dispatches"] == 0,
+              f"20a duplicate: {dup['status']} {rep2.meta}")
+        _check_pins([dup], "20a duplicate")
+        out["cache_hits"] = rep2.meta["cache_hits"]
+        out["results"] = {r["label"]: (r["distinct_states"],
+                                       r["violations"], r["status"])
+                          for r in res.values()}
+    return out
+
+
+def _drain_subprocess(here, jobs, tmp, card):
+    """20c: ``serve`` as a process with one deep raft job, SIGTERM once
+    the ledger shows its first batched dispatch.  The second dispatch
+    faults (``--chaos dispatch:at=2``) and the cycle backs off for
+    ``--backoff 4`` seconds before its retry, so the signal lands
+    while the job still has work: the retry parks it at once."""
+    import signal
+    spool = os.path.join(tmp, "20c")
+    led, hb, reg = (os.path.join(tmp, "20c.jsonl"),
+                    os.path.join(tmp, "20c.hb"),
+                    os.path.join(tmp, "20c-reg"))
+    from raft_tla_tpu_torch.serve import SpoolIntake
+    SpoolIntake(spool).submit(jobs[SERVE_DEEP], "deep")
+    cmd = [sys.executable, "-m", "raft_tla_tpu_torch", "serve", "--spool",
+           spool, "--poll", "0.05", "--wave-yield", "1", "--chaos",
+           "dispatch:at=2", "--retries", "1", "--backoff", "4",
+           "--ledger", led, "--heartbeat", hb, "--registry", reg]
+    logp = os.path.join(tmp, "20c.log")
+    t0 = time.perf_counter()
+    with open(logp, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=here, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            def first_dispatch():
+                # the ledger is being written: match the text, since its
+                # last line may be partial
+                if not os.path.exists(led):
+                    return False
+                with open(led) as fh:
+                    return '"kind": "batch"' in fh.read()
+            deadline = time.time() + 180
+            while not first_dispatch():
+                check(proc.poll() is None and time.time() < deadline,
+                      f"20c: no dispatch row (exit {proc.poll()}): "
+                      f"{open(logp).read()[-600:]}")
+                time.sleep(0.05)
+            t_sig = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"20c: exit {rc}: {open(logp).read()[-600:]}")
+    beat = _read_json(hb)
+    check(beat["status"] == "done" and
+          beat["daemon"]["drain_reason"] == "signal SIGTERM",
+          f"20c: heartbeat {beat.get('status')} {beat.get('daemon')}")
+    recs = [_read_json(os.path.join(reg, f)) for f in os.listdir(reg)
+            if f.endswith(".json")]
+    check(len(recs) == 1 and recs[0]["cmd"] == "serve" and
+          recs[0]["status"] == "draining",
+          f"20c: registry {[(r.get('cmd'), r.get('status')) for r in recs]}")
+    check(os.listdir(os.path.join(spool, "claimed")) == ["deep.json"],
+          "20c: the claimed file is gone")
+    waves = [f for f in os.listdir(os.path.join(spool, "waves"))
+             if f.endswith(".wave.npz")]
+    check(len(waves) == 1, f"20c: wave state {waves}")
+    rows = _ledger_rows(led)
+    check([r["kind"] for r in rows if r.get("kind") in
+           ("batch", "retry")] == ["batch", "retry"],
+          "20c: expected one batched dispatch, then the retry")
+    cyc = [r for r in rows if r.get("kind") == "daemon"]
+    check(len(cyc) == 1 and cyc[0]["deferred"] == 1 and cyc[0]["drained"],
+          f"20c: daemon rows {cyc}")
+    return dict(spool=spool, wall_s=wall,
+                signal_to_exit_s=time.perf_counter() - t_sig)
+
+
+def _restart(spool, tmp, tag, label):
+    """A new ``serve`` on a spool left by a drain or a kill: it recovers
+    the claimed file, resumes the job from its wave state and answers
+    as the pin."""
+    led = os.path.join(tmp, tag + ".jsonl")
+    t0 = time.perf_counter()
+    rc, out, err = _serve_cli(["serve", "--spool", spool, "--poll", "0.01",
+                               "--max-idle-polls", "1", "--ledger", led])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{tag}: restart exit {rc}: {err[-400:]}")
+    rows = _ledger_rows(led)
+    check([r["action"] for r in rows if r.get("kind") == "intake"] ==
+          ["recovered"] and
+          [r["label"] for r in rows if r.get("kind") == "wave_resume"] ==
+          [label], f"{tag}: restart rows "
+          f"{[(r.get('kind'), r.get('action')) for r in rows]}")
+    res = _spool_results(spool)
+    check(list(res) == ["deep"] and
+          res["deep"]["status_reason"] == "resumed from wave state",
+          f"{tag}: restart results {res}")
+    _check_pins([res["deep"]], tag)
+    check(os.listdir(os.path.join(spool, "claimed")) == [] and
+          not [f for f in os.listdir(os.path.join(spool, "waves"))
+               if f.endswith(".wave.npz")], f"{tag}: leftovers")
+    return wall
+
+
+def _kill_and_restart(jobs, tmp, card):
+    """20d: ``serve --chaos wave_kill:at=1 --retries 0`` exits 3 with the
+    claimed file and the wave state on disk; a new ``serve`` resumes."""
+    spool = os.path.join(tmp, "20d")
+    from raft_tla_tpu_torch.serve import SpoolIntake
+    SpoolIntake(spool).submit(jobs[SERVE_DEEP], "deep")
+    reg = os.path.join(tmp, "20d-reg")
+    t0 = time.perf_counter()
+    rc, out, err = _serve_cli(["serve", "--spool", spool, "--poll", "0.01",
+                               "--chaos", "wave_kill:at=1", "--retries",
+                               "0", "--registry", reg])
+    kill_wall = time.perf_counter() - t0
+    check(rc == 3 and "serve cycle failed" in out,
+          f"20d: kill exit {rc}: {out[-300:]} {err[-300:]}")
+    check(os.listdir(os.path.join(spool, "claimed")) == ["deep.json"] and
+          len([f for f in os.listdir(os.path.join(spool, "waves"))
+               if f.endswith(".wave.npz")]) == 1 and
+          os.listdir(os.path.join(spool, "done")) == [],
+          "20d: the kill lost the claim or the wave state")
+    recs = [_read_json(os.path.join(reg, f)) for f in os.listdir(reg)
+            if f.endswith(".json")]
+    check([r["status"] for r in recs] == ["failed"],
+          f"20d: registry {[r.get('status') for r in recs]}")
+    return dict(kill_wall_s=kill_wall,
+                restart_wall_s=_restart(spool, tmp, "20d-restart",
+                                        SERVE_DEEP))
+
+
+def daemon_phase(torch, fp, here, card):
+    """Phase 20: the daemon on the card."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    jobs = _batch_jobs(here)
+    try:
+        a = _daemon_service(torch, fp, jobs, tmp, card)
+        log(f"phase 20a daemon [{card}]: {a['jobs']} results in "
+            f"{a['waves']} waves {a['wave_sizes']} over {a['buckets']} "
+            f"buckets, {a['dispatches']} batched dispatches, every answer "
+            f"== the pinned solo runs (1 fallback, 2 witnesses), the "
+            f"duplicate a cache hit with 0 dispatches, the torn and the "
+            f"malformed file rejected with reasons; dedup launches "
+            f"{a['launches']} = {a['launches_batched']} in "
+            f"{a['batched_steps']} batched steps (one per job slot) + "
+            f"{a['launches_solo']} in the fallback; {a['captures']} "
+            f"captures, {a['replays']} replays; wall {a['wall_s']:.2f} s")
+        b = _daemon_service(torch, fp, jobs, tmp, card, exec_cache=True)
+        log(f"phase 20b --executable-cache [{card}]: {b['exec_cache']} "
+            f"against {b['captures']} graph captures, no entry written, "
+            f"answers unchanged; every store failed: "
+            f"{b['exec_cache_fail_reason']!r}; wall {b['wall_s']:.2f} s")
+        c = _drain_subprocess(here, jobs, tmp, card)
+        c["restart_wall_s"] = _restart(c.pop("spool"), tmp, "20c-restart",
+                                       SERVE_DEEP)
+        log(f"phase 20c drain [{card}]: serve process SIGTERMed after its "
+            f"first dispatch: exit 0 in {c['signal_to_exit_s']:.2f} s, "
+            f"heartbeat done, registry cmd=serve status=draining, the "
+            f"claim and the .wave.npz kept; a new serve resumed it == the "
+            f"pin in {c['restart_wall_s']:.2f} s (process wall "
+            f"{c['wall_s']:.2f} s)")
+        d = _kill_and_restart(jobs, tmp, card)
+        log(f"phase 20d kill [{card}]: wave_kill:at=1 exit 3 in "
+            f"{d['kill_wall_s']:.2f} s, claim and wave state kept; the "
+            f"restart resumed == the pin in {d['restart_wall_s']:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 20 [{card}]: {wall:.1f} s")
+    return dict(service=a, exec_cache=b, drain=c, kill=d, wall_s=wall,
+                card=card)
+
+
 def config4_phase(torch, fp, here, card):
     """Phase 19: BASELINE config #4 (the apalache variant) to depth 10
     against baseline_runs/config4.json, and the LeaderCompleteness_false
@@ -3075,8 +3497,8 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--phase", "15"], ["--phase", "16"],
                     ["--phase", "17"], ["--phase", "18"],
-                    ["--phase", "19"]):
-        print("usage: python3 chip_smoke.py [--phase 15|16|17|18|19]",
+                    ["--phase", "19"], ["--phase", "20"]):
+        print("usage: python3 chip_smoke.py [--phase 15|16|17|18|19|20]",
               file=sys.stderr)
         return 2
     only = argv[1] if argv else None
@@ -3118,6 +3540,8 @@ def main(argv=None):
                                             here, card)}
         elif only == "19":
             got = {"config4": config4_phase(torch, fp, here, card)}
+        elif only == "20":
+            got = {"serve": daemon_phase(torch, fp, here, card)}
         elif only == "17":
             # fixture (h) gives the kernel's eager time and bound at the
             # spill engine's shapes
@@ -3275,12 +3699,16 @@ def main(argv=None):
     t18 = serving_phase(torch, fp, cvt, home_slots, here, card)
     # phase 19: BASELINE config #4 and the apalache divergence hunt
     t19 = config4_phase(torch, fp, here, card)
+    # phase 20: the daemon over the wave scheduler, the executable cache,
+    # a drain and a kill, each restarted
+    t20 = daemon_phase(torch, fp, here, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"phase17": t17}))
     log(json.dumps({"phase18": t18, "phase19": t19}))
+    log(json.dumps({"serve": t20}))
 
     print(json.dumps({"kernels": [{
         "name": "probe_claim_insert", "route": "cuda",
@@ -3356,7 +3784,11 @@ def main(argv=None):
         "batch_shape_bound_ms": t18["kernel"]["bound_ms"],
         "batch_shape_of": "phase 18d fixture (i): 8 tables of 2^15 at "
                           "35%, M 8,192 each, launched back to back",
-        "config4_launches": t19["launches"]}],
+        "config4_launches": t19["launches"],
+        "serve_launches": t20["service"]["launches"],
+        "serve_launches_batched": t20["service"]["launches_batched"],
+        "serve_launches_solo": t20["service"]["launches_solo"],
+        "serve_exec_cache_launches": t20["exec_cache"]["launches"]}],
         "obs": t16,
         "paxos": t15,
         "spill": {"config2_depth20": t14, "host_table_depth19": t14b},

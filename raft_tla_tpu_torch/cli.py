@@ -1,5 +1,5 @@
 """Command-line front end: ``python -m raft_tla_tpu_torch
-check|trace|simulate``.
+check|trace|simulate|batch|serve|obs``.
 
   check <cfg>  exhaustive BFS of the model; prints one JSON stats line
                (and writes it to --stats-json), then each violation
@@ -17,6 +17,16 @@ check|trace|simulate``.
                trace (exit 0 when found, 1 if not, 2 for an unknown
                name); ``--emit-seed FILE`` writes the witness end state
                as a seed for ``check --seed-trace FILE``.
+  batch --jobs F.jsonl [--job JSON]
+               batched checking of many small jobs (serve/): one summary
+               line, then one report line per job; exit 1 when a job
+               found violations, 3 when --retries are spent.
+  serve --spool DIR
+               the persistent daemon (serve/daemon): claims job files
+               from DIR/incoming, serves them through the same waves,
+               writes DIR/results and DIR/done; exit 0 on a drain
+               (SIGTERM, SIGINT, --max-idle-polls), 3 when a cycle's
+               retries are spent.
   obs ls|show|diff|regress --registry DIR
                the run registry's query surface (``obs/report.py``):
                the run table, one run's record, the parity verdict of
@@ -62,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -793,46 +804,12 @@ def cmd_batch(args):
         print("no jobs: pass --jobs FILE.jsonl and/or --job JSON",
               file=sys.stderr)
         return 2
-    if args.cache_max_bytes is not None and args.cache_max_bytes <= 0:
-        print(f"--cache-max-bytes must be positive (got "
-              f"{args.cache_max_bytes}); omit it for an unbounded "
-              "cache", file=sys.stderr)
-        return 2
-    if args.cache_max_bytes is not None and not args.cache_dir:
-        print("--cache-max-bytes bounds the on-disk result cache: "
-              "add --cache-dir", file=sys.stderr)
-        return 2
-    if args.wave_yield is not None and args.wave_yield < 1:
-        print(f"--wave-yield must be >= 1 (got {args.wave_yield})",
-              file=sys.stderr)
-        return 2
-    if args.max_wave is not None and args.max_wave < 1:
-        print(f"--max-wave must be >= 1 (got {args.max_wave})",
-              file=sys.stderr)
-        return 2
-    try:
-        from .serve.batch import resolve_wave_mesh
-        resolve_wave_mesh(args.wave_mesh)
-    except ValueError as e:
-        print(str(e), file=sys.stderr)
-        return 2
-    if args.executable_cache_max_bytes is not None:
-        if args.executable_cache_max_bytes <= 0:
-            print(f"--executable-cache-max-bytes must be positive "
-                  f"(got {args.executable_cache_max_bytes}); omit it "
-                  "for an unbounded cache", file=sys.stderr)
-            return 2
-        if not args.executable_cache:
-            print("--executable-cache-max-bytes bounds the on-disk "
-                  "executable cache: add --executable-cache",
-                  file=sys.stderr)
-            return 2
-    if args.executable_cache:
-        from .serve.scheduler import _EXEC_CACHE_REFUSAL
-        print(f"--executable-cache: {_EXEC_CACHE_REFUSAL}",
-              file=sys.stderr)
-        return 2
-    err = _check_retry_flags(args) or _install_chaos(args)
+    err = (_cache_bound_error(args) or
+           ("--cache-max-bytes bounds the on-disk result cache: add "
+            "--cache-dir" if args.cache_max_bytes is not None and
+            not args.cache_dir else None) or
+           _wave_flags_error(args) or _exec_cache_flags_error(args) or
+           _check_retry_flags(args) or _install_chaos(args))
     if err:
         print(err, file=sys.stderr)
         return 2
@@ -845,12 +822,59 @@ def cmd_batch(args):
             uninstall()
 
 
+def _cache_bound_error(args):
+    """The reference's refusal of a non-positive --cache-max-bytes."""
+    if args.cache_max_bytes is not None and args.cache_max_bytes <= 0:
+        return (f"--cache-max-bytes must be positive (got "
+                f"{args.cache_max_bytes}); omit it for an unbounded "
+                "cache")
+    return None
+
+
+def _wave_flags_error(args):
+    """The reference's refusals of --wave-yield, --max-wave and
+    --wave-mesh (a mesh past one device names ROADMAP item 9d)."""
+    from .serve.batch import resolve_wave_mesh
+    if args.wave_yield is not None and args.wave_yield < 1:
+        return f"--wave-yield must be >= 1 (got {args.wave_yield})"
+    if args.max_wave is not None and args.max_wave < 1:
+        return f"--max-wave must be >= 1 (got {args.max_wave})"
+    try:
+        resolve_wave_mesh(args.wave_mesh)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _exec_cache_flags_error(args):
+    """The reference's refusals of --executable-cache-max-bytes."""
+    n = args.executable_cache_max_bytes
+    if n is not None and n <= 0:
+        return (f"--executable-cache-max-bytes must be positive (got "
+                f"{n}); omit it for an unbounded cache")
+    if n is not None and not args.executable_cache:
+        return ("--executable-cache-max-bytes bounds the on-disk "
+                "executable cache: add --executable-cache")
+    return None
+
+
+def _exec_cache(args):
+    """--executable-cache DIR [--executable-cache-max-bytes N] -> an
+    ExecCache with the port's serializer, or None."""
+    if not args.executable_cache:
+        return None
+    from .serve.exec_cache import ExecCache
+    return ExecCache(args.executable_cache,
+                     max_bytes=args.executable_cache_max_bytes)
+
+
 def _batch(args, jobs) -> int:
     from .resil.supervisor import RETRYABLE, backoff_delay
     from .serve import ResultCache, run_jobs
     cache = ResultCache(args.cache_dir,
                         max_bytes=args.cache_max_bytes) \
         if args.cache_dir else None
+    exec_cache = _exec_cache(args)
     obs = _build_obs(args, cmd="batch")
     obs.start()
     done = False
@@ -870,6 +894,7 @@ def _batch(args, jobs) -> int:
                                    {"sym_canon": args.sym_canon}
                                    if args.sym_canon != "auto"
                                    else None),
+                               exec_cache=exec_cache,
                                device=args.device)
                 done = True
                 break
@@ -910,6 +935,66 @@ def _batch(args, jobs) -> int:
     n_viol = sum(int(o.report.get("violations", 0))
                  for o in rep.outcomes)
     return 1 if n_viol else 0
+
+
+def cmd_serve(args) -> int:
+    """The persistent checking daemon (serve/daemon): watch a spool
+    directory (and/or tail a JSONL stream) for job submissions, drain
+    claimed jobs through the wave scheduler, and write one atomic result
+    JSON and done/ marker per submission.  Runs until SIGTERM/SIGINT
+    (graceful drain, exit 0) or --max-idle-polls.  Exit 0 = drained
+    cleanly, 2 = usage error, 3 = a serve cycle exhausted its retries.
+    Its waves run on cuda unless --device cpu; with no CUDA it raises."""
+    from .serve import Daemon, ResultCache
+    from .utils import resolve_device
+    if args.poll <= 0:
+        print(f"--poll must be positive (got {args.poll})",
+              file=sys.stderr)
+        return 2
+    if args.grace < 0:
+        print(f"--grace must be >= 0 (got {args.grace})",
+              file=sys.stderr)
+        return 2
+    if args.max_idle_polls is not None and args.max_idle_polls < 1:
+        print(f"--max-idle-polls must be >= 1 "
+              f"(got {args.max_idle_polls})", file=sys.stderr)
+        return 2
+    err = (_wave_flags_error(args) or _cache_bound_error(args) or
+           _exec_cache_flags_error(args) or _check_retry_flags(args) or
+           _install_chaos(args))
+    if err:
+        print(err, file=sys.stderr)
+        return 2
+    try:
+        # no CUDA and no --device cpu: raise before touching the spool
+        resolve_device(args.device)
+        # restart-proof by default: the result cache and the wave state
+        # live under the spool unless pointed elsewhere
+        cache_dir = args.cache_dir or os.path.join(args.spool, "cache")
+        wave_dir = args.wave_state or os.path.join(args.spool, "waves")
+        cache = ResultCache(cache_dir, max_bytes=args.cache_max_bytes)
+        obs = _build_obs(args, cmd="serve")
+        obs.start()
+        daemon = Daemon(
+            args.spool, cache=cache, wave_state=wave_dir,
+            exec_cache=_exec_cache(args), obs=obs, poll_s=args.poll,
+            wave_yield=args.wave_yield,
+            max_wave=args.max_wave, wave_mesh=args.wave_mesh,
+            bucket_overrides=({"sym_canon": args.sym_canon}
+                              if args.sym_canon != "auto" else None),
+            retries=args.retries, backoff=args.backoff,
+            max_idle_polls=args.max_idle_polls, stream=args.stream,
+            grace_s=args.grace, verbose=args.verbose,
+            device=args.device)
+        daemon.install_signals()
+        # daemon.run owns obs.finish (the drain epilogue runs on every
+        # exit path, with the daemon's own counters)
+        return daemon.run()
+    finally:
+        # the schedule is process-global: it lives as long as this run
+        if args.chaos:
+            from .resil.chaos import uninstall
+            uninstall()
 
 
 def _load_baseline_file(path, row):
@@ -1079,6 +1164,101 @@ def _add_obs_parser(sub):
                       metavar="S",
                       help="span-ratio floor: baseline phases shorter "
                            "than S seconds never trip (default 0.05)")
+
+
+def _add_serve_parser(sub):
+    """``serve``: the reference's flags and defaults, plus --device."""
+    pd = sub.add_parser(
+        "serve",
+        help="persistent checking daemon: watch a spool directory "
+             "(and/or tail a JSONL stream) for job files, claim them "
+             "atomically, drain them through the wave scheduler, and "
+             "write one atomic result JSON + done/ marker per job; "
+             "SIGTERM drains gracefully (README 'Batch / serving on "
+             "the H100' documents the spool protocol)")
+    pd.add_argument("--spool", required=True, metavar="DIR",
+                    help="spool root: incoming/ claimed/ rejected/ "
+                         "results/ done/ are created under it; "
+                         "clients write-then-rename one JSON job "
+                         "object per file (trailing newline) into "
+                         "incoming/")
+    pd.add_argument("--stream", default=None, metavar="FILE",
+                    help="also tail this append-only JSONL job "
+                         "stream: each complete appended line "
+                         "materializes as a spool submission "
+                         "(stream-<n>); the consumed offset persists "
+                         "across restarts")
+    pd.add_argument("--poll", type=float, default=0.5, metavar="SEC",
+                    help="spool poll interval while idle "
+                         "(default 0.5)")
+    pd.add_argument("--grace", type=float, default=5.0, metavar="SEC",
+                    help="seconds an incomplete submission (no "
+                         "trailing newline — a writer mid-write) may "
+                         "sit in incoming/ before it quarantines as "
+                         "torn (default 5)")
+    pd.add_argument("--max-idle-polls", type=int, default=None,
+                    metavar="N",
+                    help="drain and exit 0 after N consecutive empty "
+                         "polls (default: run until SIGTERM)")
+    pd.add_argument("--cache-dir", default=None, metavar="DIR",
+                    help="result cache directory (default: "
+                         "SPOOL/cache) — duplicate submissions are "
+                         "answered from it with zero device "
+                         "dispatches")
+    pd.add_argument("--cache-max-bytes", type=int, default=None,
+                    metavar="N",
+                    help="LRU-by-bytes result-cache bound (see "
+                         "batch --cache-max-bytes)")
+    pd.add_argument("--executable-cache", default=None, metavar="DIR",
+                    help="the persistent executable cache (see batch "
+                         "--executable-cache): on this backend every "
+                         "store fails by name and a restart "
+                         "recaptures its graphs")
+    pd.add_argument("--executable-cache-max-bytes", type=int,
+                    default=None, metavar="N",
+                    help="LRU-by-bytes bound on the executable cache "
+                         "(see batch --executable-cache-max-bytes)")
+    pd.add_argument("--wave-state", default=None, metavar="DIR",
+                    help="wave-state directory (default: SPOOL/waves) "
+                         "— live jobs persist their carry at every "
+                         "wave boundary, so a killed daemon resumes "
+                         "stragglers mid-BFS bit-exact on restart")
+    pd.add_argument("--wave-yield", type=int, default=None,
+                    metavar="N",
+                    help="fairness: a wave yields its lanes after N "
+                         "batched device calls while other claimed "
+                         "jobs wait (higher Job priority runs first)")
+    pd.add_argument("--max-wave", type=int, default=None, metavar="N",
+                    help="jobs-per-wave ceiling (default 8; see batch "
+                         "--max-wave)")
+    pd.add_argument("--wave-mesh", default="auto",
+                    metavar="auto|N|JxS|off",
+                    help="the wave's device mesh: 'auto' (default), "
+                         "'off', 0 and 1 run every wave on one device; "
+                         "a larger mesh is not ported (ROADMAP item "
+                         "9d) and refused with exit 2")
+    pd.add_argument("--retries", type=int, default=0, metavar="N",
+                    help="re-run a failed serve cycle up to N times "
+                         "with bounded exponential backoff "
+                         "(incremental via the result cache + wave "
+                         "state); exhaustion exits 3")
+    pd.add_argument("--backoff", type=float, default=2.0, metavar="S",
+                    help="base backoff seconds for --retries")
+    pd.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault injection (resil/"
+                         "chaos); 'intake' faults the spool scan, "
+                         "'wave_kill:at=1' is the deterministic "
+                         "stand-in for a kill at a wave boundary")
+    pd.add_argument("--sym-canon",
+                    choices=("auto", "sort", "minperm"),
+                    default="auto",
+                    help="symmetry canonicalization for every bucket "
+                         "engine (see batch --sym-canon)")
+    pd.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    pd.add_argument("--verbose", "-v", action="store_true")
+    _add_obs_flags(pd)
+    pd.set_defaults(fn=cmd_serve)
 
 
 def main(argv=None) -> int:
@@ -1378,13 +1558,16 @@ def main(argv=None) -> int:
                          "first (default: unbounded, the historical "
                          "behavior)")
     pb.add_argument("--executable-cache", default=None, metavar="DIR",
-                    help="the reference's persistent executable cache: "
-                         "not ported (ROADMAP item 8b), refused with "
-                         "exit 2")
+                    help="the reference's persistent executable cache "
+                         "(serve/exec_cache): each new bucket program "
+                         "is looked up and stored; a captured CUDA "
+                         "graph cannot be written to disk, so every "
+                         "store fails by name, the cache never hits, "
+                         "and the summary and ledger count both")
     pb.add_argument("--executable-cache-max-bytes", type=int,
                     default=None, metavar="N",
-                    help="LRU bound of --executable-cache (refused "
-                         "with it)")
+                    help="LRU-by-bytes bound on the executable cache "
+                         "directory (default: unbounded)")
     pb.add_argument("--sequential", action="store_true",
                     help="run each job on its own engine instead of "
                          "the batched path (the A/B reference: N jobs "
@@ -1437,12 +1620,13 @@ def main(argv=None) -> int:
     pb.add_argument("--verbose", "-v", action="store_true")
     _add_obs_flags(pb)
     pb.set_defaults(fn=cmd_batch)
+    _add_serve_parser(sub)
 
     _add_obs_parser(sub)
     args = ap.parse_args(argv)
     return {"check": cmd_check, "trace": cmd_trace,
             "simulate": cmd_simulate, "obs": cmd_obs,
-            "batch": cmd_batch}[args.cmd](args)
+            "batch": cmd_batch, "serve": cmd_serve}[args.cmd](args)
 
 
 if __name__ == "__main__":

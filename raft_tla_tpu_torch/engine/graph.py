@@ -66,6 +66,12 @@ class GraphRunner:
         self._graphs.clear()
         self._pool = None
 
+    def program(self, key: Hashable):
+        """The graph captured for ``key``, or None (nothing captured:
+        the CPU, an eager card, or a key not seen yet)."""
+        got = self._graphs.get(key)
+        return None if got is None else got[0]
+
     def run(self, key: Hashable, fn: Callable[[], None]):
         if not self.capture:
             fn()

@@ -19,11 +19,10 @@ Spec grammar (';'-separated clauses)::
                                 the hit counter — deterministic)
 
 Sites (each names one injection point in the engines; this package
-fires ``dispatch``, ``ckpt_torn``, ``ckpt_corrupt``, ``archive``,
-``host_table`` (the spill engine's host table) and ``wave_kill`` (the
-batched serving waves, ``serve/batch.py``) — ``intake`` belongs to the
-daemon, not ported yet, and its name is kept so a spec is valid in
-both packages)::
+fires all seven: ``dispatch``, ``ckpt_torn``, ``ckpt_corrupt``,
+``archive``, ``host_table`` (the spill engine's host table),
+``wave_kill`` (the batched serving waves, ``serve/batch.py``) and
+``intake`` (the daemon's spool scan, ``serve/intake.py``))::
 
     dispatch    raised at the top of every engine level/burst loop
                 iteration — a dispatch-time device error

@@ -35,10 +35,16 @@ small jobs pay N times.  This layer shares both across jobs:
 - **Result cache** (serve/cache): a repeat job is answered with zero
   device dispatches.
 - **Observability.**  Spans ``bucket_compile`` (the graph warm-up and
-  capture of a new (bucket, JP) key, on the card), ``batched_dispatch``,
-  ``job_harvest``, ``sequential_job``; the ledger gets one
-  ``kind="batch"`` row per batched dispatch and one ``kind="job"`` row
-  per finished job; the heartbeat carries the per-job status map.
+  capture of a new (bucket, JP) key, on the card), ``bucket_exec_load``
+  and ``bucket_exec_store`` (around it, with an executable cache),
+  ``batched_dispatch``, ``job_harvest``, ``sequential_job``; the ledger
+  gets one ``kind="batch"`` row per batched dispatch and one
+  ``kind="job"`` row per finished job; the heartbeat carries the
+  per-job status map.
+- **Executable cache** (serve/exec_cache): each new (bucket, JP)
+  program is looked up and stored, as the reference does; a captured
+  graph cannot be written to disk, so every store fails by name and
+  the cache never hits.
 
 The wave mesh (``--wave-mesh N`` / ``JxS``, the reference's multi-device
 waves) is not ported: ``resolve_wave_mesh`` refuses it by name.
@@ -450,8 +456,13 @@ class BucketEngine:
 
     def __init__(self, cfg, chunk: int = 128, vcap: int = 1 << 15,
                  burst_levels: int = 8, delta_matmul: bool = True,
-                 sym_canon: str = "auto", device: Optional[str] = None):
+                 sym_canon: str = "auto", exec_cache=None,
+                 device: Optional[str] = None):
         from ..engine.bfs import Engine
+        from .exec_cache import port_exec_cache
+        # only the port's serializer (which revives nothing) may back a
+        # bucket: ValueError for any other
+        self.exec_cache = port_exec_cache(exec_cache)
         # store_states stays off on the engine: serve harvests its own
         # per-job archives from the burst's outputs
         self.eng = Engine(cfg, chunk=chunk, store_states=False,
@@ -466,6 +477,9 @@ class BucketEngine:
         self.rt_mode = self.eng.ir.serve_runtime is not None
         self._rt_cache: Dict[str, Dict] = {}
         self._rings: Dict[int, object] = {}
+        # the wave widths JP this engine has a program for: its first
+        # dispatch of a new JP warms up and captures one (on the card)
+        self._programs: set = set()
         # run_wave hands it the run's obs bundle
         self._graphs = GraphRunner(self.eng.device, True,
                                    span="bucket_compile")
@@ -480,6 +494,40 @@ class BucketEngine:
             rt = self._rt_cache[key] = \
                 self.eng.ir.serve_runtime(self.eng.expander, cfg)
         return rt
+
+    def _exec_key_parts(self, JP: int) -> Dict:
+        """Every identity of the (bucket, JP) program — the reference's
+        key parts over this engine's fields (serve/exec_cache).  The
+        ceiling cfg repr covers the predicate lists, symmetry and fp128;
+        the engine fields cover the program's static shapes and modes.
+        The reference's ``donate`` part is absent: this package donates
+        no buffers, so there is no donation mode to tell apart."""
+        from ..obs.resources import backend_fingerprint
+        from .exec_cache import code_fingerprint
+        eng = self.eng
+        return {
+            "backend": backend_fingerprint(eng.device),
+            "code": code_fingerprint(),
+            "spec": eng.ir.name,
+            "ir_fingerprint": eng.ir.fingerprint(),
+            "ceiling_cfg": repr(eng.cfg),
+            "JP": JP,
+            "chunk": eng.chunk, "KB": self.KB, "VCAP": self.VCAP,
+            "FCAP": eng.FCAP, "OCAP": eng.OCAP,
+            "burst_levels": eng.burst_levels,
+            "fam_caps": list(eng.FAM_CAPS),
+            "W": eng.W,
+            "guard_matmul": eng.guard_matmul,
+            "delta_matmul": eng.expander.delta_active,
+            # the resolved canonicalization mode: sort and minperm give
+            # different programs and different table values
+            "sym_canon": eng.fpr.sym_canon,
+            "incremental_fp": bool(eng.incremental_fp and
+                                   eng.fpr.supports_incremental()),
+            "rt_mode": self.rt_mode,
+            # one device: the reference's "off" wave mesh
+            "wave_mesh": 0,
+        }
 
     def _ring(self, JP: int):
         from ..engine.bfs import _JobRing
@@ -692,8 +740,31 @@ class BucketEngine:
                     cap[k] = max(1, min(
                         run.job.max_states - run.res.distinct_states,
                         2 ** 31 - 1))
+            fresh = JP not in self._programs
+            key = parts = None
+            if fresh and self.exec_cache is not None:
+                # the persistent program cache, in the reference's
+                # order: load, capture, store.  The port's serializer
+                # revives nothing, so the load is a named miss and the
+                # capture below always runs
+                from .exec_cache import exec_key
+                parts = self._exec_key_parts(JP)
+                key = exec_key(parts)
+                with obs.span("bucket_exec_load"):
+                    self.exec_cache.load(key, parts)
             with obs.span("batched_dispatch"):
+                # a new JP's first replay is its warm-up and capture,
+                # inside the bucket_compile span (engine/graph.py)
                 stats = eng.burst_batched(r, self._graphs, lv, cap)
+            if fresh:
+                self._programs.add(JP)
+                if self.exec_cache is not None:
+                    # a counted, named failure: a CUDA graph cannot be
+                    # written to disk (on the CPU nothing was captured)
+                    with obs.span("bucket_exec_store"):
+                        self.exec_cache.store(
+                            key, self._graphs.program(("batched", JP)),
+                            parts)
             meta["batch_dispatches"] += 1
             with obs.span("job_harvest"):
                 for k, (run, _) in enumerate(admitted):
@@ -856,8 +927,10 @@ def run_jobs(jobs: List[Job], cache=None, obs=None,
     or a directory) persists live jobs' carries at wave boundaries and
     resumes them on the next call; ``max_wave`` caps the jobs per wave
     (default 8).  ``wave_mesh``: "auto"/"off"/0/1 (one device; a larger
-    mesh is refused, ROADMAP item 9d).  ``exec_cache`` must be None: the
-    executable cache is ROADMAP item 8b.  ``device``: cuda by default.
+    mesh is refused, ROADMAP item 9d).  ``exec_cache`` (an ``ExecCache``
+    or a directory) counts each bucket program's load and store; on
+    this backend every store fails by name (serve/exec_cache).
+    ``device``: cuda by default.
 
     A thin wrapper over ``serve/scheduler.WaveScheduler``, which holds
     every scheduling rule."""

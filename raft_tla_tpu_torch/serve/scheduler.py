@@ -1,11 +1,12 @@
 """The wave scheduler: the serving loop's one copy (the reference's
 ``serve/scheduler.py``).
 
-``batch`` drains a job list through ``WaveScheduler.serve`` once: result
-cache lookups, in-batch duplicate dedup, wave-state restore, shape
-bucketing, priority order, ``wave_yield`` parking, solo fallbacks, SLO
-tracking, per-tenant ledger rollups and the cache fill.  ``run_jobs`` is
-a thin one-shot wrapper over it.
+``batch`` drains a job list through ``WaveScheduler.serve`` once, and
+the daemon (serve/daemon, ``serve``) once per intake cycle: result cache
+lookups, in-batch duplicate dedup, wave-state restore, shape bucketing,
+priority order, ``wave_yield`` parking, solo fallbacks, SLO tracking,
+per-tenant ledger rollups and the cache fill.  ``run_jobs`` is a thin
+one-shot wrapper over it.
 
 A ``WaveScheduler`` keeps its ``BucketEngine``s (and their captured
 graphs) across ``serve()`` calls, so a bucket seen again reports
@@ -31,12 +32,6 @@ from .batch import (_MAX_WAVE, BatchReport, BucketEngine, JobOutcome,
                     _build_report, _default_serve_bucket, _job_row,
                     _JobRun, _run_solo, _SloTracker,
                     resolve_wave_mesh)
-
-# what exec_cache may not ask for yet
-_EXEC_CACHE_REFUSAL = (
-    "the persistent executable cache (ROADMAP item 8b) is not ported: "
-    "a CUDA graph cannot be written to disk, and each bucket captures "
-    "its graphs at first use")
 from .jobs import Job
 from .wavestate import WaveStateStore
 
@@ -45,8 +40,10 @@ __all__ = ["WaveScheduler"]
 
 class WaveScheduler:
     """The serving loop's long-lived half: the stores (result cache,
-    wave state), the bucket parameters, the device and the
-    ``BucketEngine`` map.  ``serve()`` drains one job list through it."""
+    wave state, executable cache), the bucket parameters, the device
+    and the ``BucketEngine`` map.  ``serve()`` drains one job list
+    through it; the daemon calls it once per intake cycle, ``batch``
+    once."""
 
     def __init__(self, cache=None, wave_state=None, exec_cache=None,
                  bucket_overrides=None,
@@ -54,10 +51,12 @@ class WaveScheduler:
                  max_wave: Optional[int] = None,
                  wave_mesh=None, device: Optional[str] = None):
         from ..utils import resolve_device
-        if exec_cache is not None:
-            raise ValueError(_EXEC_CACHE_REFUSAL)
         if isinstance(wave_state, str):
             wave_state = WaveStateStore(wave_state)
+        from .exec_cache import port_exec_cache
+        # a directory or an ExecCache with the port's serializer; any
+        # other serializer raises here, before a bucket is built
+        exec_cache = port_exec_cache(exec_cache)
         if wave_yield is not None and int(wave_yield) < 1:
             raise ValueError(f"wave_yield must be >= 1 "
                              f"(got {wave_yield})")
@@ -72,6 +71,7 @@ class WaveScheduler:
         self.device = str(resolve_device(device))
         self.cache = cache
         self.wave_state = wave_state
+        self.exec_cache = exec_cache
         self.bucket_overrides = dict(bucket_overrides or {})
         self.wave_yield = None if wave_yield is None else int(wave_yield)
         self.wave_cap = wave_cap
@@ -82,7 +82,8 @@ class WaveScheduler:
                        ) -> BucketEngine:
         be = self._engines.get(bkey)
         if be is None:
-            be = BucketEngine(ceiling, device=self.device, **params)
+            be = BucketEngine(ceiling, exec_cache=self.exec_cache,
+                              device=self.device, **params)
             self._engines[bkey] = be
             meta["engines_compiled"] += 1
         return be
@@ -332,6 +333,14 @@ class WaveScheduler:
         meta["deferred_jobs"] = len(deferred)
         meta["drained"] = stopped
         slo.set_queue_depth(len(deferred))
+        if self.exec_cache is not None:
+            # the executable cache's honest accounting into the summary,
+            # the heartbeat's SLO snapshot and (below) the ledger
+            stats = self.exec_cache.stats()
+            meta.update(stats)
+            slo.snapshot["exec_cache"] = {
+                k: v for k, v in stats.items()
+                if not k.endswith("_reasons")}
         if jobs_ctx:
             # the final heartbeat carries the whole batch's job map +
             # SLO snapshot, incl. cache hits and solo jobs that never
@@ -362,6 +371,9 @@ class WaveScheduler:
                 t["wait_s"] = round(t["wait_s"], 3)
                 t["service_s"] = round(t["service_s"], 3)
                 obs.ledger.record(t)
+            if self.exec_cache is not None:
+                obs.ledger.record({"kind": "exec_cache",
+                                   **self.exec_cache.stats()})
         for outcome in outcomes:
             if outcome is None or outcome.status == "cache_hit":
                 continue

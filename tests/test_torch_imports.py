@@ -279,3 +279,47 @@ def test_serve_modules_import_without_jax_and_refuse_without_cuda():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0, out.stderr
+
+
+def test_daemon_modules_import_without_jax(tmp_path):
+    """The daemon slice's modules (the executable cache, the intake, the
+    daemon) import with JAX and the JAX package blocked, do no work at
+    import (no CUDA, no file, no source hash), and the daemon refuses to
+    start without CUDA unless asked for the CPU."""
+    code = textwrap.dedent("""
+        import os, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        sys.path.insert(0, REPO)
+        import torch
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.serve." + m for m in (
+            "exec_cache", "intake", "daemon")]
+        assert set(new) <= names, sorted(set(new) - names)
+        for n in new + ["raft_tla_tpu_torch.cli",
+                        "raft_tla_tpu_torch.serve"]:
+            __import__(n)
+        assert not torch.cuda.is_initialized()
+        assert os.listdir(".") == []
+        from raft_tla_tpu_torch.serve import exec_cache
+        assert exec_cache._CODE_FP is None
+        from raft_tla_tpu_torch.serve import Daemon, ExecCache
+        try:
+            Daemon("spool")
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("the daemon started without CUDA")
+        assert os.listdir(".") == []
+        Daemon("spool", device="cpu", exec_cache=ExecCache("ec"))
+        assert sorted(os.listdir(".")) == ["ec", "spool"]
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """).replace("REPO", repr(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr

@@ -1,15 +1,16 @@
 """``python -m raft_tla_tpu_torch batch`` against the reference CLI: the
 summary's keys and order and the report lines (the port fills a result
 cache that the reference CLI then answers from, key for key), the exit
-codes 0, 1, 2 and 3, the refusals of the wave mesh (ROADMAP item 9d)
-and of the executable cache (item 8b); and ``check --dedup-kernel``:
-the flag set of both CLIs' ``check`` and ``batch`` parsers, ``off``
-against ``auto``, and ``on`` refused without CUDA."""
+codes 0, 1, 2 and 3, the refusal of the wave mesh (ROADMAP item 9d)
+and the executable cache's bound; and ``check --dedup-kernel``: the
+flag set of both CLIs' ``check``, ``batch`` and ``serve`` parsers,
+``off`` against ``auto``, and ``on`` refused without CUDA."""
 
 import argparse
 import contextlib
 import io
 import json
+import os
 
 import pytest
 import torch
@@ -105,7 +106,10 @@ def test_exit_one_on_a_violation_with_its_witness(tmp_path):
 USAGE = [
     (["--wave-mesh", "2"], "9d"),
     (["--wave-mesh", "2x2"], "9d"),
-    (["--executable-cache", "ec"], "8b"),
+    # the cache itself runs (test_torch_exec_cache.py); its bound's
+    # validation is the reference's
+    (["--executable-cache", "ec", "--executable-cache-max-bytes", "0"],
+     "--executable-cache-max-bytes must be positive"),
     (["--executable-cache-max-bytes", "5"], "add --executable-cache"),
     (["--cache-max-bytes", "10"], "add --cache-dir"),
     (["--max-wave", "0"], "--max-wave must be >= 1"),
@@ -168,12 +172,41 @@ def _flags(main, cmd):
     return {s for a in sub.choices[cmd]._actions for s in a.option_strings}
 
 
-@pytest.mark.parametrize("cmd", ["check", "batch"])
+@pytest.mark.parametrize("cmd", ["check", "batch", "serve"])
 def test_port_parser_has_every_reference_flag(cmd):
     ref, port = _flags(ref_main, cmd), _flags(port_main, cmd)
     assert ref - port == set()
     # the port's own: the device, and check's capacity knobs
     assert port - ref <= {"--device", "--lcap", "--vcap", "--ocap"}
+
+
+def _defaults(main, cmd):
+    got = {}
+    orig = argparse.ArgumentParser.parse_args
+
+    def capture(self, *a, **kw):
+        got["parser"] = self
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = capture
+    try:
+        _run(main, [cmd])
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    sub = next(a for a in got["parser"]._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {a.dest: (a.default, a.required, tuple(a.choices or ()),
+                     a.type)
+            for a in sub.choices[cmd]._actions if a.option_strings}
+
+
+def test_serve_parser_equals_the_reference_plus_device():
+    """``serve``: flag for flag the reference's, with its defaults,
+    requirements, choices and types; ``--device`` the one addition."""
+    ref, port = _defaults(ref_main, "serve"), _defaults(port_main, "serve")
+    assert set(port) - set(ref) == {"device"}
+    assert {k: v for k, v in port.items() if k != "device"} == ref
+    assert port["device"][0] is None
 
 
 def _check_stats(extra):
@@ -201,3 +234,77 @@ def test_check_dedup_kernel_off_auto_and_on():
         "check", CFG, "--servers", "2", "--max-depth", "3",
         "--dedup-kernel", "off"])
     assert rc == 2 and "--dedup-kernel off needs --device cpu" in err
+
+
+SERVE_USAGE = [
+    ["--poll", "0"], ["--grace", "-1"], ["--max-idle-polls", "0"],
+    ["--wave-yield", "0"], ["--max-wave", "0"],
+    ["--cache-max-bytes", "0"], ["--executable-cache-max-bytes", "5"],
+    ["--executable-cache", "EC", "--executable-cache-max-bytes", "-1"],
+    ["--retries", "-1"], ["--backoff", "0"], ["--chaos", "nowhere:at=1"],
+]
+
+
+@pytest.mark.parametrize("extra", SERVE_USAGE,
+                         ids=["=".join(u[:2]) for u in SERVE_USAGE])
+def test_serve_usage_errors_equal_the_reference(tmp_path, extra):
+    """``serve`` refuses each bad flag with exit 2 and the reference
+    CLI's text, before it touches the spool."""
+    from raft_tla_tpu.resil import chaos as r_chaos
+    extra = [str(tmp_path / "ec") if x == "EC" else x for x in extra]
+    spool = str(tmp_path / "spool")
+    try:
+        rc_p, out_p, err_p = _run(port_main, ["serve", "--spool", spool,
+                                              "--device", "cpu"] + extra)
+        rc_r, _o, err_r = _run(ref_main, ["serve", "--spool", spool]
+                               + extra)
+    finally:
+        r_chaos.uninstall()
+    assert rc_p == rc_r == 2 and err_p == err_r and err_p
+    assert out_p == "" and not (tmp_path / "spool").exists()
+
+
+def test_serve_refuses_a_wave_mesh_naming_9d(tmp_path):
+    rc, _out, err = _run(port_main, ["serve", "--spool",
+                                     str(tmp_path / "s"), "--device",
+                                     "cpu", "--wave-mesh", "2"])
+    assert rc == 2 and "9d" in err
+
+
+def test_serve_and_batch_run_with_the_executable_cache(tmp_path):
+    """``serve --max-idle-polls 2 --device cpu`` answers a spool's jobs
+    (result cache and wave state under the spool), and ``batch
+    --executable-cache`` counts one named store failure per program and
+    writes no entry; both answer as the plain ``batch``."""
+    spool = tmp_path / "spool"
+    (spool / "incoming").mkdir(parents=True)
+    for j in CLEAN:
+        (spool / "incoming" / (j["label"] + ".json")).write_text(
+            json.dumps(j) + "\n")
+    ec = tmp_path / "ec"
+    rc, out, err = _run(port_main, [
+        "serve", "--spool", str(spool), "--max-idle-polls", "2",
+        "--poll", "0.01", "--device", "cpu", "--executable-cache",
+        str(ec)])
+    assert rc == 0, err
+    assert sorted(os.listdir(spool)) == ["cache", "claimed", "done",
+                                         "incoming", "rejected",
+                                         "results", "waves"]
+    assert os.listdir(ec) == []
+    jobs = _jobs_file(tmp_path, CLEAN)
+    rc, out, _ = _run(port_main, ["batch", "--jobs", jobs, "--device",
+                                  "cpu", "--executable-cache", str(ec)])
+    assert rc == 0
+    summ, *rows = [json.loads(x) for x in out.splitlines()]
+    assert (summ["exec_cache_hits"], summ["exec_cache_stores"]) == (0, 0)
+    assert summ["exec_cache_misses"] == \
+        summ["exec_cache_store_failures"] == summ["buckets"] > 0
+    assert all(r.startswith("backend cannot serialize executables (")
+               for r in summ["exec_cache_store_fail_reasons"])
+    assert os.listdir(ec) == []
+    drop = ("seconds", "states_per_sec", "wait_s", "service_s")
+    for row in rows:
+        got = json.loads((spool / "results" /
+                          (row["label"] + ".json")).read_text())
+        assert {k: v for k, v in got.items() if k not in drop} == \
+            {k: v for k, v in row.items() if k not in drop}

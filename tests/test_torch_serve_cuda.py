@@ -141,3 +141,52 @@ def test_check_dedup_kernel_off_is_refused_on_the_card(cuda):
                         "--dedup-kernel", "off"])
     assert rc == 2 and "--dedup-kernel off needs --device cpu" in \
         err.getvalue()
+
+def test_daemon_cycle_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """A 2-job daemon cycle (a raft and a paxos job) on the card: the
+    result files equal a CPU daemon's but the timing keys and the
+    ``dedup_kernel`` stamp, the dedup kernel runs inside the captured
+    waves, and the executable cache counts one named store failure per
+    program and writes no entry."""
+    import json
+    import os
+    from raft_tla_tpu_torch.serve import Daemon, ExecCache
+    jobs = [("r", {"spec": "raft",
+                   "config": "configs/tlc_membership/raft.cfg",
+                   "label": "r", "max_depth": 9,
+                   "overrides": {"servers": 2, "values": [1],
+                                 "max_inflight": 4, "next": "NextAsync",
+                                 "bounds": {"max_log_length": 1,
+                                            "max_timeouts": 1,
+                                            "max_client_requests": 1}}}),
+            ("p", {"spec": "paxos", "config": {"acceptors": 2,
+                                               "ballots": 2, "values": 2},
+                   "label": "p"})]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        spool = str(tmp_path / dev)
+        ec = ExecCache(str(tmp_path / (dev + "-ec")))
+        d = Daemon(spool, exec_cache=ec, device=dev, max_idle_polls=1,
+                   sleep=lambda s: None)
+        for name, job in jobs:
+            d.intake.submit(job, name)
+        c0 = PROBE_CLAIM_LAUNCHES.count
+        assert d.run() == 0
+        launches = PROBE_CLAIM_LAUNCHES.count - c0
+        res = {}
+        for name, _job in jobs:
+            with open(os.path.join(spool, "results", name + ".json")) as fh:
+                res[name] = json.load(fh)
+        got[dev] = (res, launches, ec.stats(), d.sched)
+        assert os.listdir(ec.path) == []
+    (g, g_launch, g_ec, g_sch), (c, _l, c_ec, _s) = got["cuda"], got["cpu"]
+    for name, _job in jobs:
+        assert g[name]["dedup_kernel"] == 1
+        assert {k: v for k, v in g[name].items() if k not in TIMING} == \
+            {k: v for k, v in c[name].items() if k not in TIMING}
+    replays = sum(be._graphs.replays for be in g_sch._engines.values())
+    assert replays > 0 and g_launch >= replays
+    assert g_ec == c_ec
+    assert (g_ec["exec_cache_hits"], g_ec["exec_cache_stores"]) == (0, 0)
+    assert g_ec["exec_cache_misses"] == g_ec["exec_cache_store_failures"] \
+        == len(g_sch._engines) == 2

@@ -288,10 +288,21 @@ def test_slo_histogram_equals_reference():
     assert PB._SLO_EDGES == RB._SLO_EDGES and PB._MAX_WAVE == 8
 
 
-def test_scheduler_refuses_executable_cache_naming_8b():
-    from raft_tla_tpu_torch.serve import WaveScheduler
-    with pytest.raises(ValueError, match="8b"):
-        WaveScheduler(exec_cache="some/dir", device="cpu")
+def test_scheduler_refuses_executable_cache_naming_8b(tmp_path):
+    """The executable cache (item 8b) is taken as a directory or with
+    the port's serializer; one with another serializer is refused."""
+    from raft_tla_tpu_torch.serve import ExecCache, WaveScheduler
+    from raft_tla_tpu_torch.serve.exec_cache import TorchGraphSerializer
+    sch = WaveScheduler(exec_cache=str(tmp_path / "ec"), device="cpu")
+    assert type(sch.exec_cache._ser) is TorchGraphSerializer
+
+    class Other:
+        name = "other"
+
+    with pytest.raises(ValueError, match="port's serializer"):
+        WaveScheduler(exec_cache=ExecCache(str(tmp_path / "ec2"),
+                                           serializer=Other()),
+                      device="cpu")
     with pytest.raises(ValueError, match="max_wave"):
         WaveScheduler(max_wave=0, device="cpu")
     with pytest.raises(ValueError, match="wave_yield"):
