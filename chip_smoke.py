@@ -219,9 +219,22 @@ Phases (any failure exits non-zero before the final line):
      ``serve`` on each of (c)'s and (d)'s spools recovers the claim,
      resumes the job from its wave state (a ``wave_resume`` row) and
      answers as the pin.
+ 21. The sharded engine and the walker fleet (``parallel/``), D shards on
+     the one card (devices ``["cuda:0"] * D``): (a) BASELINE config #1 at
+     D = 1, 2 and 4 to the budget's depth: equal counts and level sizes
+     across D, the reference mesh's first 16 levels, the classic engine's
+     answer; launches = D per lock-step step + the rehashes'; (b) the
+     FirstCommit witness at D = 2 and 4 (identical, replayed by the
+     oracle) and paxos at D = 2 == the classic engine; (c) the kernel at
+     the mesh's shapes (four table shards of 2^22, windows of 32,768
+     keys, back to back, twice) == the twin, timed beside its bound; (d)
+     a D = 2 checkpoint written mid-run, resumed on the card, on the CPU
+     and, as a portable image, on 4 shards and the classic engine; (e)
+     phase 13a's hunt on a two-cohort fleet (SimEngine's hit and trace
+     among its hits), and a hit-free fleet's stats == SimEngine's.
 
-``python3 chip_smoke.py --phase 15`` (or 16, 17, 18, 19, 20) runs phases
-1, 2 and that phase alone and prints no result line.
+``python3 chip_smoke.py --phase 15`` (or 16, ..., 21) runs phases 1, 2
+and that phase alone and prints no result line.
 
 Prints the kernel table as one JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a
@@ -3493,13 +3506,415 @@ def config4_phase(torch, fp, here, card):
                 hunt_distinct=got.distinct_states)
 
 
+# Phase 21: the sharded engine (parallel/mesh.py) and the walker fleet
+# (parallel/sim_mesh.py), D shards on the one card (devices ["cuda:0"]*D).
+# The reference's ShardedEngine on config #1 (2 of the 8 virtual CPU
+# devices, chunk 2048, lcap 2^20, vcap 2^22, the 2,000,000 budget) ran
+# to depth 19 in 577 s on the CPU: 2,540,315 distinct and 6,447,443
+# generated states with these level sizes (those of the reference's
+# Engine), and 105,915 / 242,661 at depth 16, where its Engine agrees
+# (tests/test_torch_mesh.py).
+CONFIG1_MESH_LEVEL_SIZES = [1, 2, 4, 7, 12, 19, 28, 40, 57, 84, 154, 397,
+                            1252, 4091, 12873, 38411, 108856, 294895,
+                            768234]
+CONFIG1_MESH_GENERATED = 6_447_443
+CONFIG1_DEPTH16_COUNTS = (105_915, 242_661)
+# 21d: a 2-shard checkpoint of config #1 at depth 12 as a portable image,
+# resumed to depth 16 by the reference's engines on the CPU: its
+# ShardedEngine on 4 devices lands on CONFIG1_DEPTH16_COUNTS; its
+# first-seen Engine, continuing from the mesh's content-canonical
+# representatives, on these (counter-dependent constraints prune
+# differently from other representatives)
+MESH_IMAGE_CLASSIC = (105_902, 242_613, 16,
+                      [1, 2, 4, 7, 12, 19, 28, 40, 57, 84, 154, 397,
+                       1252, 4090, 12868, 38390])
+# The reference's ShardedEngine on phase 6's micro config (FirstCommit,
+# stop at the first violation; 8 virtual CPU devices, chunk 64): its
+# content-canonical witness, the same at D = 2 and 4, at these
+# device-major global ids (the classic engine's first-seen witness is
+# MICRO_TRACE)
+MESH_MICRO_TRACE = ["Init", "Timeout(1)", "RequestVote(1,0)",
+                    "UpdateTerm[slot0]", "Receive[slot0]", "Receive[slot0]",
+                    "RequestVote(1,1)", "Receive[slot0]", "Receive[slot0]",
+                    "BecomeLeader(1)", "ClientRequest(1,1)",
+                    "AppendEntries(1,0)", "Receive[slot0]",
+                    "Receive[slot0]", "Receive[slot0]",
+                    "AdvanceCommitIndex(1)"]
+MESH_MICRO_GIDS = {2: 373, 4: 379}
+MESH_SHARDS = (1, 2, 4)
+MESH_ENGINE = dict(chunk=2048, lcap=1 << 21, vcap=1 << 24)
+MESH_CKPT_DEPTH, MESH_CPU_DEPTH = 12, 14
+# 21c: four table shards of config #1's D = 4 run (VB 2^22) at the load
+# of its last level, receive windows of D * SC keys
+MESH_FIXTURE = dict(shards=4, log2_vb=22, M=4 * 8192)
+# 21e: phase 13a's hunt split into two cohorts, and a hit-free fleet
+MESH_FLEET_COHORTS = 2
+MESH_FREE_STEPS = 256
+
+
+def mesh_run(torch, fp, cfg, D, kw, capture=True, **check_kw):
+    """``ShardedEngine(cfg, devices=["cuda:0"] * D).check`` with the
+    kernel's launch counter zeroed just before and read just after."""
+    from raft_tla_tpu_torch.parallel.mesh import ShardedEngine
+    eng = ShardedEngine(cfg, devices=["cuda:0"] * D, **kw)
+    eng._capture = capture
+    torch.cuda.synchronize()
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    ctr.reset()
+    t0 = time.perf_counter()
+    res = eng.check(**check_kw)
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    check(launches > 0, f"D={D}: the mesh never launched the kernel")
+    check(launches == D * eng.lockstep_steps + eng.rehash_launches,
+          f"D={D}: {launches} launches != {D} x {eng.lockstep_steps} "
+          f"steps + {eng.rehash_launches} rehash launches")
+    check(capture == (eng.replays > 0),
+          f"D={D}: graph replays {eng.replays} with capture={capture}")
+    return dict(eng=eng, res=res, wall=wall, launches=launches,
+                steps=eng.lockstep_steps, flag_reads=eng.flag_reads,
+                rehash_launches=eng.rehash_launches,
+                captures=eng.captures, replays=eng.replays)
+
+
+def mesh_config1_phase(torch, fp, cfg1, card):
+    """21a: config #1 at D = 1, 2 and 4 shards on the card to the
+    budget's depth: identical counts and level sizes across D, equal to
+    the reference mesh's pinned answer (which is its Engine's too)."""
+    runs = {}
+    for D in MESH_SHARDS:
+        r = mesh_run(torch, fp, cfg1, D,
+                     dict(MESH_ENGINE, store_states=False),
+                     max_states=CONFIG1_MAX_STATES)
+        res = r["res"]
+        runs[D] = r
+        log(f"phase 21a config #1 on {D} shard(s) [{card}]: distinct "
+            f"{res.distinct_states}, generated {res.generated_states}, "
+            f"depth {res.depth} (classic engine: {CONFIG1_DISTINCT} / "
+            f"depth {CONFIG1_DEPTH}); wall {r['wall']:.2f} s, "
+            f"{res.distinct_states / r['wall']:.0f} states/s; "
+            f"{r['steps']} lock-step steps, {r['flag_reads']} flag reads, "
+            f"probe_claim_insert launches {r['launches']} = {D} x "
+            f"{r['steps']} + {r['rehash_launches']} (rehash); levels "
+            f"fused {res.levels_fused} in {res.burst_dispatches} bursts "
+            f"({res.burst_bailouts} bailed); graphs captured "
+            f"{r['captures']}, replayed {r['replays']}; LB "
+            f"{r['eng'].LB}, VB {r['eng'].VB}, FC {r['eng'].FC}, SC "
+            f"{r['eng'].SC}")
+    base = runs[MESH_SHARDS[0]]["res"]
+    for D, r in runs.items():
+        res = r["res"]
+        check((res.distinct_states, res.generated_states, res.depth,
+               res.level_sizes) == (base.distinct_states,
+                                    base.generated_states, base.depth,
+                                    base.level_sizes),
+              f"21a: D={D} differs from D={MESH_SHARDS[0]}")
+    # the reference mesh's pinned answer, which is also its Engine's
+    check_answer("21a config #1 on the mesh", dict(res=base),
+                 CONFIG1_DISTINCT, CONFIG1_DEPTH, CONFIG1_MESH_LEVEL_SIZES)
+    check(base.generated_states == CONFIG1_MESH_GENERATED,
+          f"21a: generated {base.generated_states}")
+    return {D: dict(wall=r["wall"], launches=r["launches"],
+                    steps=r["steps"], flag_reads=r["flag_reads"],
+                    rehash_launches=r["rehash_launches"],
+                    captures=r["captures"], replays=r["replays"],
+                    distinct=r["res"].distinct_states,
+                    LB=r["eng"].LB, VB=r["eng"].VB, FC=r["eng"].FC,
+                    SC=r["eng"].SC)
+            for D, r in runs.items()}
+
+
+def mesh_witness_phase(torch, fp, card):
+    """21b: the FirstCommit witness at D = 2 and 4 (identical traces,
+    replayed by the oracle); paxos at D = 2 == the classic engine."""
+    from raft_tla_tpu_torch.config import Bounds, ModelConfig, NEXT_ASYNC
+    from raft_tla_tpu_torch.engine.bfs import Engine
+    from raft_tla_tpu_torch.models.explore import oracle_validates_walk
+    from raft_tla_tpu_torch.spec.paxos.config import PaxosConfig
+    micro = ModelConfig(
+        n_servers=2, init_servers=(0, 1), values=(1,),
+        next_family=NEXT_ASYNC, symmetry=True, max_inflight_override=2,
+        invariants=("FirstCommit",),
+        bounds=Bounds.make(max_log_length=1, max_timeouts=1,
+                           max_client_requests=1))
+    traces, gids = {}, {}
+    for D in (2, 4):
+        r = mesh_run(torch, fp, micro, D, dict(chunk=64),
+                     stop_on_violation=True)
+        check(r["res"].violations, f"21b: no FirstCommit witness at D={D}")
+        gids[D] = r["res"].violations[0].state_id
+        traces[D] = r["eng"].trace(gids[D])
+    labels = {D: [lbl for lbl, _ in t] for D, t in traces.items()}
+    check(labels[2] == labels[4] == MESH_MICRO_TRACE and
+          gids == MESH_MICRO_GIDS, f"21b: witnesses {gids} {labels}")
+    states = [sv for _l, sv in traces[2]]
+    check(states == [sv for _l, sv in traces[4]],
+          "21b: the witnesses' states differ")
+    walk = oracle_validates_walk(micro, states)
+    check(len(walk) == len(MESH_MICRO_TRACE) - 1,
+          "21b: the oracle did not replay the witness")
+    pax = PaxosConfig()
+    pm = mesh_run(torch, fp, pax, 2, dict(chunk=64, store_states=False))
+    pc = Engine(pax, chunk=64, store_states=False,
+                device="cuda").check()
+    got = (pm["res"].distinct_states, pm["res"].generated_states,
+           pm["res"].depth, pm["res"].level_sizes)
+    check(got == (pc.distinct_states, pc.generated_states, pc.depth,
+                  pc.level_sizes), f"21b: paxos mesh {got[:3]} != "
+          f"classic {(pc.distinct_states, pc.depth)}")
+    log(f"phase 21b FirstCommit witness [{card}]: D=2 == D=4 action by "
+        f"action ({len(MESH_MICRO_TRACE) - 1} steps, the reference mesh's "
+        f"labels, gids {gids}), replayed by the oracle; paxos on 2 "
+        f"shards == the classic "
+        f"engine ({got[0]} states, depth {got[2]}, "
+        f"{pm['launches']} launches)")
+    return dict(paxos_distinct=got[0], paxos_launches=pm["launches"])
+
+
+def mesh_kernel_phase(torch, fp, cvt, home_slots, card):
+    """21c: the dedup kernel at the mesh's shapes: four table shards of
+    one VB on the card at config #1's last-level load, receive windows
+    of M keys (duplicates across the shards and within a window),
+    launched back to back on one stream, twice; each output == the
+    plain twin's, the two passes agree; the four timed together."""
+    import numpy as np
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(21)
+    S, vb, M, W = (MESH_FIXTURE["shards"], 1 << MESH_FIXTURE["log2_vb"],
+                   MESH_FIXTURE["M"], 2)
+    n_fill = (CONFIG1_DISTINCT + S - 1) // S
+    tabs = []
+    shared = _keys(rng, M // 4, W, salt=2100)      # in every window
+    wins, lives, pools = [], [], []
+    for s in range(S):
+        pool = _keys(rng, n_fill + M, W, salt=2200 + s)
+        t = torch.full((W, vb), -1, dtype=torch.int32, device=dev)
+        fp.probe_claim_insert(t, cvt.words_to_torch(pool[:, :n_fill], dev),
+                              torch.ones(n_fill, dtype=torch.bool,
+                                         device=dev))
+        pick = np.concatenate([rng.randint(0, n_fill, M // 4),
+                               n_fill + rng.randint(0, M // 4, M // 4)])
+        win = np.concatenate([shared, pool[:, pick]], 1)
+        win = win[:, :M] if win.shape[1] >= M else np.concatenate(
+            [win, pool[:, n_fill + M // 4:n_fill + M // 4 +
+                       (M - win.shape[1])]], 1)
+        live = rng.rand(M) < 0.9
+        tabs.append(t)
+        wins.append(cvt.words_to_torch(win, dev))
+        lives.append(torch.from_numpy(live).to(dev))
+    torch.cuda.synchronize()
+    outs = []
+    for _pass in range(2):
+        copies = [t.clone() for t in tabs]
+        got = [fp.probe_claim_insert(c, k, lv)
+               for c, k, lv in zip(copies, wins, lives)]
+        torch.cuda.synchronize()
+        outs.append((copies, got))
+    err, plain_ms, probes, nbytes = 0, 0.0, 0, 0
+    for s in range(S):
+        t_p = tabs[s].cpu()
+        t0 = time.perf_counter()
+        fpl, ppl, hpl = fp.probe_claim_insert_plain(t_p, wins[s].cpu(),
+                                                    lives[s].cpu())
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        for copies, got in outs:
+            fk, pk, hk = got[s]
+            err = max(err, int((copies[s].cpu().long() -
+                                t_p.long()).abs().max()),
+                      int((pk.cpu().long() - ppl.long()).abs().max()),
+                      int((fk.cpu().long() - fpl.long()).abs().max()))
+            check(torch.equal(copies[s].cpu(), t_p) and
+                  torch.equal(fk.cpu(), fpl) and
+                  torch.equal(pk.cpu(), ppl) and bool(hk) == bool(hpl),
+                  f"21c: shard {s}: kernel != twin")
+        (c0, g0), (c1, g1) = outs
+        check(torch.equal(c0[s], c1[s]) and all(
+            torch.equal(a, b) for a, b in zip(g0[s], g1[s])),
+            f"21c: shard {s}: the two passes differ")
+        fk = g0[s][0]
+        live = lives[s]
+        home = home_slots(wins[s], vb).long()
+        p = _probes(home[live], g0[s][1].long()[live], vb,
+                    fp.MAX_PROBE_ROUNDS)
+        probes += p
+        nbytes += 4 * W * M + M + 4 * W * p + 4 * W * int(fk.sum()) + \
+            M + 4 * M + 4
+    ms = []
+    for _ in range(5):
+        copies = [t.clone() for t in tabs]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        for c, k, lv in zip(copies, wins, lives):
+            fp.probe_claim_insert(c, k, lv)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    total = sorted(ms)[len(ms) // 2]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"phase 21c the mesh's shapes ({S} table shards of 2^"
+        f"{MESH_FIXTURE['log2_vb']} at {n_fill} keys each, windows of M "
+        f"{M}, launched back to back, twice) [{card}]: kernel == twin on "
+        f"every shard, the passes agree; {total:.4f} ms for the {S} "
+        f"(median of 5, {total / S:.4f} ms a launch), plain twin "
+        f"{plain_ms:.1f} ms, {probes} probes, {nbytes} bytes (bound "
+        f"{bound:.6f} ms)")
+    return dict(ms=total, ms_per_launch=total / S, plain_ms=plain_ms,
+                bound_ms=bound, probes=probes, bytes=nbytes,
+                max_abs_err=err)
+
+
+def mesh_ckpt_phase(torch, fp, cfg1, a, card):
+    """21d: a sharded checkpoint of config #1 at D = 2, written on the
+    card mid-run; resumed on the card (the uninterrupted stats), on the
+    CPU by the port (== the card to a shallower depth), and its
+    portable image onto D = 4 and the classic engine (the reference's
+    engines' counts from the same image at depth 16)."""
+    from raft_tla_tpu_torch.engine.bfs import Engine
+    from raft_tla_tpu_torch.parallel.mesh import ShardedEngine
+    from raft_tla_tpu_torch.resil.portable import load_portable_image
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    kw = dict(MESH_ENGINE, store_states=False)
+    try:
+        path = os.path.join(tmp, "mesh2.ckpt")
+        t0 = time.perf_counter()
+        w = mesh_run(torch, fp, cfg1, 2, kw, max_depth=MESH_CKPT_DEPTH,
+                     checkpoint_path=path, checkpoint_every=MESH_CKPT_DEPTH)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        r = mesh_run(torch, fp, cfg1, 2, kw, resume_from=path,
+                     max_states=CONFIG1_MAX_STATES)
+        full = a[2]
+        check((r["res"].distinct_states, r["res"].depth) ==
+              (full["distinct"], CONFIG1_DEPTH) and
+              r["res"].level_sizes == CONFIG1_LEVEL_SIZES,
+              f"21d: the card's resume {r['res'].distinct_states}")
+
+        def stats(res):
+            return (res.distinct_states, res.generated_states, res.depth,
+                    res.level_sizes, res.violations_global)
+        card14 = mesh_run(torch, fp, cfg1, 2, kw,
+                          max_depth=MESH_CPU_DEPTH)["res"]
+        t1 = time.perf_counter()
+        cpu = ShardedEngine(cfg1, devices=["cpu"] * 2, **kw).check(
+            resume_from=path, max_depth=MESH_CPU_DEPTH)
+        t_cpu = time.perf_counter() - t1
+        check(stats(cpu) == stats(card14),
+              f"21d: the CPU's resume {stats(cpu)[:3]} != the card's "
+              f"{stats(card14)[:3]}")
+        img = load_portable_image(path)
+        r4 = mesh_run(torch, fp, cfg1, 4, kw, resume_image=img,
+                      max_depth=16)
+        rc = Engine(cfg1, device="cuda", store_states=False,
+                    **dict(CONFIG1_ENGINE)).check(resume_image=img,
+                                                  max_depth=16)
+        mesh16 = CONFIG1_DEPTH16_COUNTS + (16,
+                                           CONFIG1_MESH_LEVEL_SIZES[:16])
+        for nm, res, want in (("D=4", r4["res"], mesh16),
+                              ("classic", rc, MESH_IMAGE_CLASSIC)):
+            check(stats(res)[:4] == tuple(want),
+                  f"21d: portable onto {nm}: {stats(res)[:3]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 21d sharded checkpoint [{card}]: config #1 at D=2 "
+        f"written at depth {MESH_CKPT_DEPTH} ({size} bytes, run + write "
+        f"{t_write:.2f} s); resumed on the card to depth "
+        f"{r['res'].depth} == the uninterrupted run "
+        f"({r['res'].distinct_states}); resumed on the CPU to depth "
+        f"{MESH_CPU_DEPTH} == the card ({cpu.distinct_states} states, "
+        f"{t_cpu:.1f} s); its portable image to depth 16 == the "
+        f"reference's engines': on 4 shards {CONFIG1_DEPTH16_COUNTS}, on "
+        f"the classic engine {MESH_IMAGE_CLASSIC[:2]}")
+    return dict(bytes=size, write_s=t_write, cpu_s=t_cpu,
+                resume_launches=r["launches"])
+
+
+def mesh_fleet_phase(torch, here, card):
+    """21e: phase 13a's hunt (the CLI's solo run) against a two-cohort
+    ShardedSimEngine of the same width and seed on the card: the solo
+    hit and its decoded trace among the fleet's; a hit-free fleet's
+    stats == SimEngine's."""
+    from raft_tla_tpu_torch.parallel.sim_mesh import ShardedSimEngine
+    from raft_tla_tpu_torch.sim import SimEngine
+    argv = [os.path.join(here, a) if a.endswith(".cfg") else a
+            for a in SIM_CMD]
+    rc, out, err, seen = cli_run(argv + ["--device", "cuda"], SimEngine,
+                                 "run")
+    check(rc == 0, f"21e: simulate exit code {rc}: {err[-300:]}")
+    (solo, rs), = seen
+    t0 = time.perf_counter()
+    fleet = ShardedSimEngine(
+        solo.cfg, walkers=solo.W, devices=["cuda:0"] * MESH_FLEET_COHORTS,
+        max_depth=solo.budget, seed=solo.seed, policy=solo.policy,
+        bloom_bits=solo.bloom_bits)
+    rf = fleet.run(steps=30000)
+    t_fleet = time.perf_counter() - t0
+    # a single engine stops every walker at the first hit; a cohort
+    # without it finishes its dispatch (the reference fleet's rule), so
+    # the solo run's hit is among the fleet's
+    check(rf.hits and rs.hits, "21e: no MembershipChangeCommits hit")
+    hs = solo.decode_hit(rs.hits[0])
+    hf = [fleet.decode_hit(h) for h in rf.hits
+          if (h.walker, h.depth) == (hs.walker, hs.depth)]
+    check(len(hf) == 1 and hf[0].lanes == hs.lanes and
+          (hs.walker, hs.depth) == (SIM_WALKER, SIM_DEPTH) and
+          [l for l, _ in hf[0].trace] == [l for l, _ in hs.trace],
+          f"21e: fleet hits {[(h.walker, h.depth) for h in rf.hits]}, "
+          f"solo {(hs.walker, hs.depth)}")
+    hf = hf[0]
+    free = _fleet_cfg(here)
+    fkw = dict(SIM_FLEET, walkers=SIM_NARROW)
+    ff = ShardedSimEngine(free, devices=["cuda:0"] * MESH_FLEET_COHORTS,
+                          **fkw).run(steps=MESH_FREE_STEPS)
+    fs = SimEngine(free, device="cuda", **fkw).run(steps=MESH_FREE_STEPS)
+    keys = ("steps_dispatched", "walker_steps", "sampled_steps",
+            "restarts", "deadlocks", "promotions", "bloom_bits_set")
+    check(all(getattr(ff, k) == getattr(fs, k) for k in keys),
+          f"21e: hit-free fleet {[getattr(ff, k) for k in keys]} != "
+          f"solo {[getattr(fs, k) for k in keys]}")
+    log(f"phase 21e walker fleet [{card}]: {MESH_FLEET_COHORTS} cohorts "
+        f"on the card, SimEngine at {solo.W} walkers: the hunt's hit "
+        f"(walker {hf.walker}, depth {hf.depth}) and decoded trace "
+        f"among the fleet's {len(rf.hits)} hit(s); steps fleet "
+        f"{rf.steps_dispatched} / solo {rs.steps_dispatched}, "
+        f"walker-steps {rf.walker_steps} / {rs.walker_steps} (a cohort "
+        f"without the hit ends its dispatch); fleet {t_fleet:.2f} s; the "
+        f"hit-free fleet's stats == SimEngine's over {MESH_FREE_STEPS} "
+        f"steps")
+    return dict(fleet_s=t_fleet, fleet_hits=len(rf.hits),
+                fleet_steps=rf.steps_dispatched,
+                solo_steps=rs.steps_dispatched,
+                fleet_walker_steps=rf.walker_steps,
+                solo_walker_steps=rs.walker_steps)
+
+
+def mesh_phase(torch, fp, cvt, home_slots, here, card):
+    """Phase 21: the sharded engine and the walker fleet on the card."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    t0 = time.perf_counter()
+    cfg1 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
+                      bounds=Bounds.make(**CONFIG1_BOUNDS))
+    a = mesh_config1_phase(torch, fp, cfg1, card)
+    b = mesh_witness_phase(torch, fp, card)
+    c = mesh_kernel_phase(torch, fp, cvt, home_slots, card)
+    d = mesh_ckpt_phase(torch, fp, cfg1, a, card)
+    e = mesh_fleet_phase(torch, here, card)
+    wall = time.perf_counter() - t0
+    log(f"phase 21 [{card}]: {wall:.1f} s")
+    return dict(config1=a, witness=b, kernel=c, ckpt=d, fleet=e, wall=wall)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--phase", "15"], ["--phase", "16"],
                     ["--phase", "17"], ["--phase", "18"],
-                    ["--phase", "19"], ["--phase", "20"]):
-        print("usage: python3 chip_smoke.py [--phase 15|16|17|18|19|20]",
-              file=sys.stderr)
+                    ["--phase", "19"], ["--phase", "20"],
+                    ["--phase", "21"]):
+        print("usage: python3 chip_smoke.py "
+              "[--phase 15|16|17|18|19|20|21]", file=sys.stderr)
         return 2
     only = argv[1] if argv else None
     import torch
@@ -3542,6 +3957,9 @@ def main(argv=None):
             got = {"config4": config4_phase(torch, fp, here, card)}
         elif only == "20":
             got = {"serve": daemon_phase(torch, fp, here, card)}
+        elif only == "21":
+            got = {"mesh": mesh_phase(torch, fp, cvt, home_slots, here,
+                                      card)}
         elif only == "17":
             # fixture (h) gives the kernel's eager time and bound at the
             # spill engine's shapes
@@ -3702,6 +4120,9 @@ def main(argv=None):
     # phase 20: the daemon over the wave scheduler, the executable cache,
     # a drain and a kill, each restarted
     t20 = daemon_phase(torch, fp, here, card)
+    # phase 21: the sharded engine at D = 1, 2, 4 shards on the card and
+    # the walker fleet
+    t21 = mesh_phase(torch, fp, cvt, home_slots, here, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -3709,6 +4130,7 @@ def main(argv=None):
     log(json.dumps({"phase17": t17}))
     log(json.dumps({"phase18": t18, "phase19": t19}))
     log(json.dumps({"serve": t20}))
+    log(json.dumps({"mesh": t21}))
 
     print(json.dumps({"kernels": [{
         "name": "probe_claim_insert", "route": "cuda",
@@ -3716,7 +4138,8 @@ def main(argv=None):
         "replaces": "raft_tla_tpu/engine/fingerprint.py:1025",
         "launches": c5["launches"],
         "max_abs_err": max(meas["max_abs_err"],
-                           t18["kernel"]["max_abs_err"]),
+                           t18["kernel"]["max_abs_err"],
+                           t21["kernel"]["max_abs_err"]),
         "ms": meas["ms"], "plain_ms": meas["plain_ms"],
         "bound_ms": meas["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "rounds": meas["rounds"],
@@ -3788,7 +4211,21 @@ def main(argv=None):
         "serve_launches": t20["service"]["launches"],
         "serve_launches_batched": t20["service"]["launches_batched"],
         "serve_launches_solo": t20["service"]["launches_solo"],
-        "serve_exec_cache_launches": t20["exec_cache"]["launches"]}],
+        "serve_exec_cache_launches": t20["exec_cache"]["launches"],
+        "mesh_config1_launches": {str(D): a["launches"]
+                                  for D, a in t21["config1"].items()},
+        "mesh_config1_lockstep_steps": {
+            str(D): a["steps"] for D, a in t21["config1"].items()},
+        "mesh_paxos_launches": t21["witness"]["paxos_launches"],
+        "mesh_shape_ms": t21["kernel"]["ms"],
+        "mesh_shape_ms_per_launch": t21["kernel"]["ms_per_launch"],
+        "mesh_shape_plain_ms": t21["kernel"]["plain_ms"],
+        "mesh_shape_bound_ms": t21["kernel"]["bound_ms"],
+        "mesh_shape_max_abs_err": t21["kernel"]["max_abs_err"],
+        "mesh_shape_of": "phase 21c: 4 table shards of 2^22 at config "
+                         "#1's last-level load, windows of M 32,768, "
+                         "launched back to back"}],
+        "mesh": t21,
         "obs": t16,
         "paxos": t15,
         "spill": {"config2_depth20": t14, "host_table_depth19": t14b},

@@ -714,14 +714,21 @@ def cmd_simulate(args) -> int:
     # "unbounded" default maps to a walk-sized one
     depth = args.max_depth if args.max_depth < 10 ** 6 else 64
     from .sim import SimEngine
-    # --mesh: the fleet across devices is not ported; a walker's stream
-    # depends on its global id only, so one device walks the same
-    eng = SimEngine(cfg, walkers=args.walkers, max_depth=depth,
-                    seed=args.seed, policy=args.policy,
-                    bloom_bits=args.bloom_bits,
-                    guard_matmul=args.guard_matmul,
-                    delta_matmul=args.delta_matmul,
-                    sym_canon=args.sym_canon, device=args.device)
+    kw = dict(max_depth=depth, seed=args.seed, policy=args.policy,
+              bloom_bits=args.bloom_bits,
+              guard_matmul=args.guard_matmul,
+              delta_matmul=args.delta_matmul, sym_canon=args.sym_canon)
+    # --mesh: one cohort per visible card when there is more than one
+    # (as the reference's fleet over its local devices); a walker's
+    # stream depends on its global id only, so one device walks the same
+    import torch
+    if args.mesh and args.device != "cpu" and \
+            torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        from .parallel.sim_mesh import ShardedSimEngine
+        eng = ShardedSimEngine(cfg, walkers=args.walkers, **kw)
+    else:
+        eng = SimEngine(cfg, walkers=args.walkers, device=args.device,
+                        **kw)
     obs = _build_obs(args, ir, cfg, "simulate")
     obs.start()
     t0 = time.perf_counter()
@@ -1520,10 +1527,11 @@ def main(argv=None) -> int:
                     help="log2 bits of the novelty Bloom filter behind "
                          "est_distinct_states")
     ps.add_argument("--mesh", action="store_true",
-                    help="accepted for the reference CLI's surface: the "
-                         "fleet runs on one device whatever the count "
-                         "(a walker's stream depends on its global id "
-                         "only, so the answer is the sharded fleet's)")
+                    help="split the fleet into one cohort per visible "
+                         "CUDA device when there is more than one "
+                         "(parallel/sim_mesh.py); a walker's stream "
+                         "depends on its global id only, so one device "
+                         "walks the same")
     ps.add_argument("--trace-out", default=None, metavar="FILE",
                     help="write the witness trace (labels) as JSON")
     ps.add_argument("--emit-seed", default=None, metavar="FILE",

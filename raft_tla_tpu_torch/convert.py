@@ -14,7 +14,7 @@ default is every spec's.
 
 from __future__ import annotations
 
-from typing import Collection, Dict, Sequence, Union
+from typing import Collection, Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -117,4 +117,74 @@ def sim_carry_from_jax(carry: Dict, device="cpu") -> Dict:
                                              traj.dtype)])),
         hit=t(carry["hit"], torch.bool),
         bloom=t(np.append(np.asarray(carry["bloom"]), False), torch.bool))
+    return out
+
+
+# the sharded carry: the reference's ShardedEngine carry leaves, each
+# with a leading [D] axis, against the port's one dict per shard
+_SHARD_SCRATCH = ("claims", "cidx", "sscr")
+
+
+def sharded_carry_from_jax(carry: Dict, devices) -> List[Dict]:
+    """The reference's sharded carry (numpy leaves with a leading D
+    axis, batch-major, u32 words as uint32: ``vis`` a tuple of W
+    [D, VB], ``lpfp`` [D, LB, W], ``linv`` [D, LB, n_inv], ``lvl`` and
+    ``front`` {key: [D, LB, ...]}) -> one dict per shard on its device
+    in the port's layout: batch-last, u32 words as int32 bits, ``vis``
+    [W, VB], ``lpfp`` [W, LB], ``linv`` [n_inv, LB].  The reference's
+    scratch leaves (``claims``, ``cidx``, ``sscr``) are dropped."""
+    def t(a, dev):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        # np.array, not ascontiguousarray, which makes a 0-d leaf 1-d
+        return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+    out = []
+    for d, dev in enumerate(devices):
+        sh = {}
+        for k, v in carry.items():
+            if k in _SHARD_SCRATCH:
+                continue
+            if k == "vis":
+                sh[k] = t(np.stack([np.asarray(w)[d] for w in v]), dev)
+            elif k in ("lvl", "front"):
+                sh[k] = {f: t(np.moveaxis(np.asarray(a)[d], 0, -1), dev)
+                         for f, a in v.items()}
+            elif k in ("lpfp", "linv"):
+                sh[k] = t(np.asarray(v)[d].T, dev)
+            else:
+                sh[k] = t(np.asarray(v)[d], dev)
+        out.append(sh)
+    return out
+
+
+def sharded_carry_to_jax(shards: List[Dict], fc: int, sc: int,
+                         u32_keys: Collection[str] = ALL_U32_KEYS) -> Dict:
+    """The inverse of ``sharded_carry_from_jax``: per-shard dicts ->
+    the reference's carry of numpy leaves (copies), the scratch leaves
+    as the reference's fresh ones (``claims`` all ones [D, VB], ``cidx``
+    [D, fc] and ``sscr`` [D, sc] zeros)."""
+    def h(x, u32=False):
+        a = x.to("cpu", copy=True).numpy()
+        return a.view(np.uint32) if u32 else a
+
+    D = len(shards)
+    out = {}
+    for k, v in shards[0].items():
+        if k == "vis":
+            out[k] = tuple(np.stack([h(s[k][w], True) for s in shards])
+                           for w in range(v.shape[0]))
+        elif k in ("lvl", "front"):
+            out[k] = {f: np.stack([np.moveaxis(h(s[k][f], f in u32_keys),
+                                               -1, 0) for s in shards])
+                      for f in v}
+        elif k in ("lpfp", "linv"):
+            out[k] = np.stack([h(s[k], k == "lpfp").T for s in shards])
+        else:
+            out[k] = np.stack([h(s[k]) for s in shards])
+    vb = shards[0]["vis"].shape[1]
+    out["claims"] = np.full((D, vb), 0xFFFFFFFF, np.uint32)
+    out["cidx"] = np.zeros((D, fc), np.int32)
+    out["sscr"] = np.zeros((D, sc), np.int32)
     return out

@@ -323,3 +323,48 @@ def test_daemon_modules_import_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0, out.stderr
+
+
+def test_mesh_modules_import_without_jax():
+    """The sharded slice's modules (the sharded engine, the walker
+    fleet) and the modules it changed import with JAX and the JAX
+    package blocked, the package walk reaches them, and both engines
+    refuse to start without CUDA unless given CPU devices."""
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.parallel",
+               "raft_tla_tpu_torch.parallel.mesh",
+               "raft_tla_tpu_torch.parallel.sim_mesh"]
+        changed = ["raft_tla_tpu_torch." + m for m in ("cli", "convert")]
+        assert set(new) <= names, sorted(set(new) - names)
+        for n in new + changed:
+            __import__(n)
+        from raft_tla_tpu_torch.config import Bounds, ModelConfig
+        from raft_tla_tpu_torch.parallel import (ShardedEngine,
+                                                 ShardedSimEngine)
+        cfg = ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
+                          bounds=Bounds.make(max_log_length=1))
+        for make in (lambda: ShardedEngine(cfg),
+                     lambda: ShardedEngine(cfg, devices=["cuda:0"] * 2),
+                     lambda: ShardedSimEngine(cfg, walkers=8)):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e)
+            else:
+                raise AssertionError("a mesh engine started without CUDA")
+        assert ShardedEngine(cfg, devices=["cpu"] * 2).D == 2
+        assert ShardedSimEngine(cfg, walkers=8, devices=["cpu"] * 2).D == 2
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr

@@ -1,7 +1,8 @@
 """Where the time goes in the PyTorch/CUDA port's check on one GPU.
 
-    python tools/torch_profile.py [--config 1|5|pinned|paxos|sim|spill]
+    python tools/torch_profile.py [--config 1|5|pinned|paxos|sim|spill|mesh]
                                   [--max-depth 17] [--walkers 64]
+                                  [--shards 4]
                                   [--steps 32] [--no-action-constraint]
                                   [--incremental-fp 0|1] [--hcap N]
                                   [--no-guard-matmul] [--no-delta-matmul]
@@ -60,6 +61,17 @@ copies down (d2h) and frontier and image uploads (h2d), the harvest,
 the sweep and the reseed), beside the segments, bytes, summary reads,
 captures and reseeds.  The profiler is not used: a run to depth 19
 launches millions of kernels.
+
+``--config mesh`` runs BASELINE config #1 on the sharded engine
+(``parallel/mesh.py``, chip_smoke.py phase 21's capacities) with
+``--shards`` D shards on the one card to ``--max-depth`` (default 16),
+after a warm-up: the wall, the lock-step steps and flag reads, the
+dedup launches; under the profiler the device-busy time, the idle
+share of the plain run's wall and the device kernels per lock-step
+step; the host's seconds blocked in the step's flag read against the
+steps' host seconds (the read's share of a step); and, from an eager
+run with CUDA events around each step and around its exchange, the
+exchange's share of a step's device time.
 """
 
 import argparse
@@ -79,10 +91,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("1", "5", "pinned", "paxos",
-                                         "sim", "spill"), default="1")
+                                         "sim", "spill", "mesh"),
+                    default="1")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="shards on the card (--config mesh)")
     ap.add_argument("--max-depth", type=int, default=None,
                     help="default 17 (19 for --config spill, 14 for "
-                         "--config paxos)")
+                         "--config paxos, 16 for --config mesh)")
     ap.add_argument("--host-table", action="store_true",
                     help="the host-partitioned table (--config spill)")
     ap.add_argument("--walkers", type=int, default=64,
@@ -111,7 +126,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.max_depth is None:
-        args.max_depth = {"spill": 19, "paxos": 14}.get(args.config, 17)
+        args.max_depth = {"spill": 19, "paxos": 14,
+                          "mesh": 16}.get(args.config, 17)
     import torch
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA device", file=sys.stderr)
@@ -133,6 +149,9 @@ def main(argv=None):
                                   root, card, args), args)
     if args.config == "spill":
         return _print(spill_profile(torch, cs, root, card, args), args)
+    if args.config == "mesh":
+        return _print(mesh_profile(torch, profile, ProfilerActivity, cs,
+                                   root, card, args), args)
     path = os.path.join(root, "configs/tlc_membership/raft.cfg")
     stop = True
     if args.config == "1":
@@ -275,6 +294,113 @@ def _kernel_rows(torch, prof):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     return rows, calls
+
+
+def mesh_profile(torch, profile, ProfilerActivity, cs, root, card, args):
+    """Config #1 on the sharded engine with ``--shards`` shards on the
+    card: wall, steps and reads; the profiler's device time and kernels
+    per lock-step step; the flag read's share of a step's host time;
+    the exchange's share of an eager step's device time."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.engine import fingerprint as fp
+    from raft_tla_tpu_torch.parallel import mesh
+    cfg = load_model(os.path.join(root, "configs/tlc_membership/raft.cfg"),
+                     bounds=Bounds.make(**cs.CONFIG1_BOUNDS))
+    D = args.shards
+
+    def run(capture=True):
+        eng = mesh.ShardedEngine(cfg, devices=["cuda:0"] * D,
+                                 store_states=False, burst=args.burst,
+                                 **cs.MESH_ENGINE)
+        eng._capture = capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.check(max_depth=args.max_depth,
+                        max_states=cs.CONFIG1_MAX_STATES)
+        return res, time.perf_counter() - t0, eng
+
+    run()                                  # warm-up: allocator, kernels
+    fp.PROBE_CLAIM_LAUNCHES.reset()
+    # the host's seconds in each lock-step step and in its flag read
+    host = {"step": 0.0, "read": 0.0}
+    step, read = mesh.ShardedEngine._lockstep, mesh.ShardedEngine._read_flags
+
+    def timed(name, fn):
+        def wrapped(self, *a):
+            t = time.perf_counter()
+            try:
+                return fn(self, *a)
+            finally:
+                host[name] += time.perf_counter() - t
+        return wrapped
+    mesh.ShardedEngine._lockstep = timed("step", step)
+    mesh.ShardedEngine._read_flags = timed("read", read)
+    try:
+        res, wall, eng = run()
+    finally:
+        mesh.ShardedEngine._lockstep, mesh.ShardedEngine._read_flags = \
+            step, read
+    out = {"card": card, "config": "mesh", "shards": D,
+           "max_depth": args.max_depth, "burst": args.burst,
+           "distinct_states": res.distinct_states,
+           "generated_states": res.generated_states, "depth": res.depth,
+           "level_sizes": res.level_sizes, "wall_s": wall,
+           "states_per_s": res.distinct_states / wall,
+           "lockstep_steps": eng.lockstep_steps,
+           "flag_reads": eng.flag_reads,
+           "dedup_launches": fp.PROBE_CLAIM_LAUNCHES.count,
+           "graph_captures": eng.captures, "graph_replays": eng.replays,
+           "steps_host_s": host["step"], "flag_read_host_s": host["read"],
+           "flag_read_share_of_step": host["read"] / max(host["step"],
+                                                         1e-9)}
+    fp.PROBE_CLAIM_LAUNCHES.reset()
+    if args.profile:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _res, wall_prof, eng_p = run()
+        rows, calls = _kernel_rows(torch, prof)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        n_launch = sum(r[2] for r in rows)
+        out.update({
+            "profiled_wall_s": wall_prof,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "device_launches": n_launch,
+            "kernels_per_lockstep_step": n_launch / max(
+                eng_p.lockstep_steps, 1),
+            "host_launch_calls": calls,
+            "top_kernels": [{"name": k[:120], "device_ms": us / 1e3,
+                             "calls": c} for us, k, c in rows[:args.top]]})
+    # eager: CUDA events around each step and around its exchange
+    ev = {"step": [], "exchange": []}
+    exch = mesh._Windows.exchange
+
+    def ev_wrap(name, fn):
+        def wrapped(self, *a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            try:
+                return fn(self, *a)
+            finally:
+                e1.record()
+                ev[name].append((e0, e1))
+        return wrapped
+    mesh.ShardedEngine._lockstep = ev_wrap("step", step)
+    mesh._Windows.exchange = ev_wrap("exchange", exch)
+    try:
+        _res, wall_e, _eng = run(capture=False)
+    finally:
+        mesh.ShardedEngine._lockstep = step
+        mesh._Windows.exchange = exch
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in ev.items()}
+    out.update({"eager_wall_s": wall_e, "eager_steps_ms": ms["step"],
+                "eager_exchange_ms": ms["exchange"],
+                "exchange_share_of_step": ms["exchange"] /
+                max(ms["step"], 1e-9)})
+    return out
 
 
 def sim_profile(torch, profile, ProfilerActivity, cs, root, card, args):
