@@ -104,7 +104,7 @@ Phases (any failure exits non-zero before the final line):
      memory and host RSS are printed; (b) the classic engine
      checkpoints config #2 at depth 16, then ``check --spill
      --host-table --partitions 4 --resume-portable`` continues it
-     through the CLI to depth 19 (7,619,299 states, with at least one
+     through the CLI to depth 18 (2,443,370 states, with at least one
      reseed of the device cache) writing a spill checkpoint, and a
      resume of that checkpoint prints the same stats line; the largest
      reseed's frontier keys go through the kernel and the plain twin
@@ -232,8 +232,24 @@ Phases (any failure exits non-zero before the final line):
      and, as a portable image, on 4 shards and the classic engine; (e)
      phase 13a's hunt on a two-cohort fleet (SimEngine's hit and trace
      among its hits), and a hit-free fleet's stats == SimEngine's.
+ 22. The spill-composed mesh (``parallel/spill_mesh.py``), D shards of
+     the card whose levels stream through host RAM: (a) config #1 at
+     D = 2 with lcap 2^21, levels spilled at their ends only: phase
+     21a's answer; (b) lcap 2^17 at D = 2 and 4: the widest levels
+     spill mid-level, the step-atomic trips replay, and the counts, the
+     level sizes, the mid-level spills, the trips and the capacities at
+     the end are the reference's engine's; (c) the FirstCommit witness
+     on the reference's spill-mesh MICRO with levels spilled mid-level
+     and the archive on disk: the reference's gids and trace at D = 2
+     and 4, replayed by the oracle; (d) in every run the launches are
+     D per lock-step step (tripped ones included) + the rehashes', and
+     the kernel at 22b's 2-shard shapes (2^23 slots, windows of 65,536
+     keys) == the twin, timed beside its bound.  Each run prints its
+     wall, lock-step steps, trips, mid-level spills, spill events and
+     host bytes each way.
 
-``python3 chip_smoke.py --phase 15`` (or 16, ..., 21) runs phases 1, 2
+Each log line starts with the seconds since the script began.
+``python3 chip_smoke.py --phase 15`` (or 16, ..., 22) runs phases 1, 2
 and that phase alone and prints no result line.
 
 Prints the kernel table as one JSON line, then the card line, then
@@ -417,8 +433,12 @@ SPILL_LEVEL_SIZES = [1, 2, 4, 7, 12, 19, 28, 40, 57, 85, 167, 507, 1942,
 SPILL_ENGINE = dict(chunk=4096, seg=1 << 22, store_states=True)
 # 14b: the classic checkpoint's depth (vcap 2^22, lcap 2^19 and no
 # archives keep the file small), the host-table run's depth and its
-# distinct count (baseline_runs/round3_deep.json: config #2, depth 19)
-HT_CKPT_DEPTH, HT_DEPTH, HT_DISTINCT = 16, 19, 7_619_299
+# distinct count (baseline_runs/round3_deep.json, "config2_fp128_parity":
+# config #2 to depth 18, where its 2.4 M budget stopped both key widths);
+# the spill checkpoint is written at HT_SPILL_CKPT_DEPTH and resumed to
+# HT_DEPTH
+HT_CKPT_DEPTH, HT_DEPTH, HT_DISTINCT = 16, 18, 2_443_370
+HT_SPILL_CKPT_DEPTH = 17
 HT_CLASSIC = dict(chunk=4096, lcap=1 << 19, vcap=1 << 22,
                   store_states=False)
 # a device cache of 2^20 slots (0.4 of them, 419,430 keys, before a
@@ -626,8 +646,13 @@ LC_HUNT_TRACE = ["ClientRequest(1,1)", "AppendEntries(1,2)",
                  "HandleAEResp(1<-2)", "AdvanceCommitIndex(1)"]
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run's log, with the seconds since the script began
+    (where each phase's time goes)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 class SmokeFailure(Exception):
@@ -1851,8 +1876,8 @@ def spill_phase(torch, fp, here, tmp, card):
 def host_table_phase(torch, fp, here, tmp, card):
     """Phase 14 (b): the classic engine's checkpoint of config #2 at
     depth 16, resumed through ``check --spill --host-table
-    --resume-portable`` to depth 19 (a spill checkpoint written at depth
-    18), then that checkpoint resumed to depth 19: the same stats."""
+    --resume-portable`` to depth 18 (a spill checkpoint written at depth
+    17), then that checkpoint resumed to depth 18: the same stats."""
     from raft_tla_tpu_torch.cfg.parser import load_model
     from raft_tla_tpu_torch.config import Bounds
     from raft_tla_tpu_torch.engine.bfs import Engine
@@ -1886,7 +1911,8 @@ def host_table_phase(torch, fp, here, tmp, card):
     try:
         rc, out, err, seen = cli_run(argv + [
             "--resume", ck, "--resume-portable", "--checkpoint", ck2,
-            "--checkpoint-every", "2"], cls=SpillEngine)
+            "--checkpoint-every", str(HT_SPILL_CKPT_DEPTH)],
+            cls=SpillEngine)
     finally:
         SpillEngine._reseed_dev_table = orig_reseed
     wall = time.perf_counter() - t0
@@ -1922,7 +1948,8 @@ def host_table_phase(torch, fp, here, tmp, card):
         f"{eng.sweep_stage_hits}, misses {eng.sweep_stage_misses}; wall "
         f"{wall:.2f} s; probe_claim_insert launches {launches}; host "
         f"seconds { {k: round(v, 3) for k, v in eng.host_seconds.items()} }"
-        f"; the spill checkpoint at depth 18 ({os.path.getsize(ck2)} B) "
+        f"; the spill checkpoint at depth {HT_SPILL_CKPT_DEPTH} "
+        f"({os.path.getsize(ck2)} B) "
         f"resumed to depth {res2.depth}: the same stats line, "
         f"{wall2:.2f} s")
     return dict(wall=wall, launches=launches, reseeds=eng.reseeds,
@@ -3552,6 +3579,52 @@ MESH_FLEET_COHORTS = 2
 MESH_FREE_STEPS = 256
 
 
+# Phase 22: the spill-composed mesh (parallel/spill_mesh.py), D shards of
+# cuda:0.  Its answers are pinned from JAX CPU runs of the reference's
+# SpilledShardedEngine on D of the 8 virtual CPU devices:
+#   SpilledShardedEngine(build_cfg(1), devices=jax.devices()[:D],
+#       chunk=2048, lcap=LCAP, vcap=1 << 24, store_states=False
+#   ).check(max_states=2_000_000)
+# with its trips counted by wrapping _handle_mesh_trip.  22a, lcap 2^21 at
+# D = 2 (343.9 s on the CPU): 2,540,315 / 6,447,443 / depth 19 and the
+# mesh's level sizes (phase 21a's answer), no mid-level spill, 2 trips.
+# 22b, lcap 2^17 (the receive window's floor: 65,536 usable level rows a
+# shard at D = 2, 32,768 at D = 4): the widest levels spill mid-level, and
+# the per-epoch survivor lands on these answers (459.2 s / 323.6 s on the
+# CPU); the capacities at the end (LB, FC, SC, VB) are the reference's.
+SM_ENGINE = dict(chunk=2048, vcap=1 << 24, store_states=False)
+SM_LEVEL_END_LCAP, SM_LEVEL_END_TRIPS = 1 << 21, 2
+SM_SQUEEZED_LCAP = 1 << 17
+SM_PINS = {
+    2: dict(distinct=2_540_259, generated=6_447_168, mid=17, trips=19,
+            caps=(131_072, 16_384, 32_768, 1 << 23),
+            tail=[294_867, 767_997]),
+    4: dict(distinct=2_540_279, generated=6_447_259, mid=17, trips=18,
+            caps=(65_536, 8_192, 8_192, 1 << 22),
+            tail=[294_877, 768_045])}
+# 22c: the reference's spill-mesh MICRO (tests/test_spill_mesh.py: two
+# servers, no symmetry, the VIEW-only constraints) with FirstCommit,
+# squeezed to spill levels 12-15 mid-level, archive on disk, stopped at
+# the first violation; the reference's gids, violations and witness
+#   SpilledShardedEngine(micro, devices=jax.devices()[:D],
+#       store_states=True, archive_dir=tmp, **SM_MICRO_ENGINE[D]
+#   ).check(stop_on_violation=True)
+SM_MICRO_ENGINE = {2: dict(chunk=16, lcap=1024, scap=128, vcap=1 << 15),
+                   4: dict(chunk=32, lcap=1024, scap=32, vcap=1 << 16)}
+SM_MICRO_PINS = {2: dict(gids=[4489, 4606], mid=4),
+                 4: dict(gids=[4289, 4380], mid=4)}
+SM_MICRO_DISTINCT = 4742
+SM_MICRO_TRACE = ["Init", "Timeout(1)", "RequestVote(1,0)",
+                  "UpdateTerm[slot0]", "Receive[slot0]", "RequestVote(1,1)",
+                  "Receive[slot0]", "Receive[slot1]", "Receive[slot0]",
+                  "BecomeLeader(1)", "ClientRequest(1,1)",
+                  "AppendEntries(1,0)", "Receive[slot0]", "Receive[slot0]",
+                  "Receive[slot0]", "AdvanceCommitIndex(1)"]
+# 22d: the kernel at 22b's D = 2 table shards (VB 2^23) and windows (M =
+# D x SC = 65,536); D = 4's (2^22, 32,768) are 21c's
+SM_FIXTURE = dict(shards=2, log2_vb=23, M=2 * 32768)
+
+
 def mesh_run(torch, fp, cfg, D, kw, capture=True, **check_kw):
     """``ShardedEngine(cfg, devices=["cuda:0"] * D).check`` with the
     kernel's launch counter zeroed just before and read just after."""
@@ -3672,17 +3745,20 @@ def mesh_witness_phase(torch, fp, card):
     return dict(paxos_distinct=got[0], paxos_launches=pm["launches"])
 
 
-def mesh_kernel_phase(torch, fp, cvt, home_slots, card):
-    """21c: the dedup kernel at the mesh's shapes: four table shards of
-    one VB on the card at config #1's last-level load, receive windows
-    of M keys (duplicates across the shards and within a window),
-    launched back to back on one stream, twice; each output == the
-    plain twin's, the two passes agree; the four timed together."""
+def mesh_kernel_phase(torch, fp, cvt, home_slots, card, fixture=None,
+                      tag="21c"):
+    """21c: the dedup kernel at the mesh's shapes: S table shards of one
+    VB on the card at config #1's last-level load, receive windows of M
+    keys (duplicates across the shards and within a window), launched
+    back to back on one stream, twice; each output == the plain twin's,
+    the two passes agree; the S timed together.  ``fixture`` (default
+    MESH_FIXTURE) gives S, VB and M; 22d runs it at the spill mesh's."""
     import numpy as np
+    fixture = fixture or MESH_FIXTURE
     dev = torch.device("cuda")
     rng = np.random.RandomState(21)
-    S, vb, M, W = (MESH_FIXTURE["shards"], 1 << MESH_FIXTURE["log2_vb"],
-                   MESH_FIXTURE["M"], 2)
+    S, vb, M, W = (fixture["shards"], 1 << fixture["log2_vb"],
+                   fixture["M"], 2)
     n_fill = (CONFIG1_DISTINCT + S - 1) // S
     tabs = []
     shared = _keys(rng, M // 4, W, salt=2100)      # in every window
@@ -3727,11 +3803,11 @@ def mesh_kernel_phase(torch, fp, cvt, home_slots, card):
             check(torch.equal(copies[s].cpu(), t_p) and
                   torch.equal(fk.cpu(), fpl) and
                   torch.equal(pk.cpu(), ppl) and bool(hk) == bool(hpl),
-                  f"21c: shard {s}: kernel != twin")
+                  f"{tag}: shard {s}: kernel != twin")
         (c0, g0), (c1, g1) = outs
         check(torch.equal(c0[s], c1[s]) and all(
             torch.equal(a, b) for a, b in zip(g0[s], g1[s])),
-            f"21c: shard {s}: the two passes differ")
+            f"{tag}: shard {s}: the two passes differ")
         fk = g0[s][0]
         live = lives[s]
         home = home_slots(wins[s], vb).long()
@@ -3754,8 +3830,8 @@ def mesh_kernel_phase(torch, fp, cvt, home_slots, card):
         ms.append(e0.elapsed_time(e1))
     total = sorted(ms)[len(ms) // 2]
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"phase 21c the mesh's shapes ({S} table shards of 2^"
-        f"{MESH_FIXTURE['log2_vb']} at {n_fill} keys each, windows of M "
+    log(f"phase {tag} the mesh's shapes ({S} table shards of 2^"
+        f"{fixture['log2_vb']} at {n_fill} keys each, windows of M "
         f"{M}, launched back to back, twice) [{card}]: kernel == twin on "
         f"every shard, the passes agree; {total:.4f} ms for the {S} "
         f"(median of 5, {total / S:.4f} ms a launch), plain twin "
@@ -3907,14 +3983,170 @@ def mesh_phase(torch, fp, cvt, home_slots, here, card):
     return dict(config1=a, witness=b, kernel=c, ckpt=d, fleet=e, wall=wall)
 
 
+def spill_mesh_run(torch, fp, cfg, D, kw, **check_kw):
+    """``SpilledShardedEngine(cfg, devices=["cuda:0"] * D).check`` with
+    the kernel's launch counter zeroed just before and read just after:
+    one launch a shard a lock-step step (tripped steps included) plus
+    the rehashes'."""
+    from raft_tla_tpu_torch.parallel.spill_mesh import SpilledShardedEngine
+    eng = SpilledShardedEngine(cfg, devices=["cuda:0"] * D, **kw)
+    torch.cuda.synchronize()
+    ctr = fp.PROBE_CLAIM_LAUNCHES
+    ctr.reset()
+    t0 = time.perf_counter()
+    res = eng.check(**check_kw)
+    wall = time.perf_counter() - t0
+    launches = ctr.count
+    ctr.reset()
+    check(launches > 0, f"22 D={D}: the spill mesh never launched the kernel")
+    check(launches == D * eng.lockstep_steps + eng.rehash_launches,
+          f"22 D={D}: {launches} launches != {D} x {eng.lockstep_steps} "
+          f"steps + {eng.rehash_launches} rehash launches")
+    check(eng.replays > 0 and eng.flag_reads == eng.lockstep_steps,
+          f"22 D={D}: replays {eng.replays}, flag reads {eng.flag_reads}")
+    return dict(eng=eng, res=res, wall=wall, launches=launches,
+                steps=eng.lockstep_steps, trips=eng.trips,
+                mid=eng.mid_level_spills, spills=eng.spill_events,
+                rehash_launches=eng.rehash_launches,
+                bytes_down=eng.bytes_down, bytes_up=eng.bytes_up,
+                captures=eng.captures, replays=eng.replays,
+                caps=(eng.LB, eng.FC, eng.SC, eng.VB))
+
+
+def _sm_summary(r):
+    res = r["res"]
+    return (f"{res.distinct_states} distinct, {res.generated_states} "
+            f"generated, depth {res.depth}; wall {r['wall']:.2f} s; "
+            f"{r['steps']} lock-step steps ({r['trips']} tripped and "
+            f"replayed), {r['mid']} mid-level spills, {r['spills']} spill "
+            f"events; probe_claim_insert launches {r['launches']} = "
+            f"{r['eng'].D} x {r['steps']} + {r['rehash_launches']} "
+            f"(rehash); host bytes down {r['bytes_down']}, up "
+            f"{r['bytes_up']}; graphs captured {r['captures']}, replayed "
+            f"{r['replays']}; LB {r['caps'][0]}, FC {r['caps'][1]}, SC "
+            f"{r['caps'][2]}, VB {r['caps'][3]}")
+
+
+def _sm_row(r):
+    return {k: r[k] for k in ("wall", "launches", "steps", "trips", "mid",
+                              "spills", "rehash_launches", "bytes_down",
+                              "bytes_up", "captures", "replays")}
+
+
+def spill_mesh_config1_phase(torch, fp, cfg1, card):
+    """22a: config #1 at D = 2 with lcap 2^21: levels spill at their ends
+    only, the answer is phase 21a's.  22b: lcap 2^17 at D = 2 and 4: the
+    widest levels spill mid-level, the answers are the reference's."""
+    out = {}
+    r = spill_mesh_run(torch, fp, cfg1, 2,
+                       dict(SM_ENGINE, lcap=SM_LEVEL_END_LCAP),
+                       max_states=CONFIG1_MAX_STATES)
+    res = r["res"]
+    log(f"phase 22a config #1, level-end spills, 2 shards [{card}]: "
+        + _sm_summary(r))
+    check_answer("22a config #1 on the spill mesh", dict(res=res),
+                 CONFIG1_DISTINCT, CONFIG1_DEPTH, CONFIG1_MESH_LEVEL_SIZES)
+    check((res.generated_states, r["mid"], r["trips"]) ==
+          (CONFIG1_MESH_GENERATED, 0, SM_LEVEL_END_TRIPS),
+          f"22a: generated {res.generated_states}, mid-level spills "
+          f"{r['mid']}, trips {r['trips']}")
+    out["level_end_d2"] = _sm_row(r)
+    for D, pin in SM_PINS.items():
+        r = spill_mesh_run(torch, fp, cfg1, D,
+                           dict(SM_ENGINE, lcap=SM_SQUEEZED_LCAP),
+                           max_states=CONFIG1_MAX_STATES)
+        res = r["res"]
+        log(f"phase 22b config #1, mid-level spills, {D} shards [{card}]: "
+            + _sm_summary(r))
+        want = CONFIG1_MESH_LEVEL_SIZES[:-2] + pin["tail"]
+        check(res.distinct_states == pin["distinct"] and
+              res.generated_states == pin["generated"] and
+              res.depth == CONFIG1_DEPTH and res.level_sizes == want,
+              f"22b D={D}: {res.distinct_states} / {res.generated_states} "
+              f"/ depth {res.depth}, level sizes {res.level_sizes}")
+        check((r["mid"], r["trips"], r["caps"]) ==
+              (pin["mid"], pin["trips"], pin["caps"]),
+              f"22b D={D}: mid-level spills {r['mid']}, trips {r['trips']},"
+              f" caps {r['caps']}")
+        out[f"squeezed_d{D}"] = _sm_row(r)
+    return out
+
+
+def spill_mesh_witness_phase(torch, fp, card):
+    """22c: the FirstCommit witness on the spill mesh at D = 2 and 4 with
+    the archive on disk and levels spilled mid-level: the reference's
+    gids and trace, walked from the memmaps and replayed by the
+    oracle."""
+    from raft_tla_tpu_torch.config import Bounds, ModelConfig, NEXT_ASYNC
+    from raft_tla_tpu_torch.models.explore import oracle_validates_walk
+    micro = ModelConfig(
+        n_servers=2, init_servers=(0, 1), values=(1,),
+        next_family=NEXT_ASYNC, symmetry=False, max_inflight_override=2,
+        constraints=("BoundedInFlightMessages", "BoundedRequestVote",
+                     "BoundedLogSize", "BoundedTerms"),
+        invariants=("FirstCommit",),
+        bounds=Bounds.make(max_log_length=1, max_timeouts=1,
+                           max_client_requests=1))
+    out = {}
+    for D, pin in SM_MICRO_PINS.items():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_sm_")
+        try:
+            r = spill_mesh_run(torch, fp, micro, D,
+                               dict(SM_MICRO_ENGINE[D], store_states=True,
+                                    archive_dir=tmp),
+                               stop_on_violation=True)
+            res, eng = r["res"], r["eng"]
+            gids = [v.state_id for v in res.violations]
+            trace = eng.trace(gids[0])
+            check(eng._arch is not None and eng._arch.n_levels == res.depth + 1,
+                  f"22c D={D}: the archive is not on disk")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        labels = [lbl for lbl, _ in trace]
+        check(gids == pin["gids"] and r["mid"] == pin["mid"] and
+              res.distinct_states == SM_MICRO_DISTINCT and
+              labels == SM_MICRO_TRACE,
+              f"22c D={D}: gids {gids}, mid-level spills {r['mid']}, "
+              f"{res.distinct_states} states, trace {labels}")
+        walk = oracle_validates_walk(micro, [sv for _l, sv in trace])
+        check(len(walk) == len(SM_MICRO_TRACE) - 1,
+              f"22c D={D}: the oracle did not replay the witness")
+        out[D] = dict(gids=gids, launches=r["launches"], wall=r["wall"],
+                      mid=r["mid"], trips=r["trips"])
+    log(f"phase 22c FirstCommit witness on the spill mesh [{card}]: the "
+        f"reference's gids {({D: o['gids'] for D, o in out.items()})} and "
+        f"{len(SM_MICRO_TRACE) - 1}-step trace at D = 2 and 4, walked from "
+        f"the disk archive after {out[2]['mid']} / {out[4]['mid']} "
+        f"mid-level spills, replayed by the oracle")
+    return out
+
+
+def spill_mesh_phase(torch, fp, cvt, home_slots, here, card):
+    """Phase 22: the spill-composed mesh on the card."""
+    from raft_tla_tpu_torch.cfg.parser import load_model
+    from raft_tla_tpu_torch.config import Bounds
+    t0 = time.perf_counter()
+    cfg1 = load_model(os.path.join(here, "configs/tlc_membership/raft.cfg"),
+                      bounds=Bounds.make(**CONFIG1_BOUNDS))
+    a = spill_mesh_config1_phase(torch, fp, cfg1, card)
+    c = spill_mesh_witness_phase(torch, fp, card)
+    # 22d: the launches were held in every run above; the kernel at the
+    # 2-shard table shards' shapes (21c holds the 4-shard ones)
+    d = mesh_kernel_phase(torch, fp, cvt, home_slots, card,
+                          fixture=SM_FIXTURE, tag="22d")
+    wall = time.perf_counter() - t0
+    log(f"phase 22 [{card}]: {wall:.1f} s")
+    return dict(config1=a, witness=c, kernel=d, wall=wall)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--phase", "15"], ["--phase", "16"],
                     ["--phase", "17"], ["--phase", "18"],
                     ["--phase", "19"], ["--phase", "20"],
-                    ["--phase", "21"]):
+                    ["--phase", "21"], ["--phase", "22"]):
         print("usage: python3 chip_smoke.py "
-              "[--phase 15|16|17|18|19|20|21]", file=sys.stderr)
+              "[--phase 15|16|17|18|19|20|21|22]", file=sys.stderr)
         return 2
     only = argv[1] if argv else None
     import torch
@@ -3960,6 +4192,9 @@ def main(argv=None):
         elif only == "21":
             got = {"mesh": mesh_phase(torch, fp, cvt, home_slots, here,
                                       card)}
+        elif only == "22":
+            got = {"spill_mesh": spill_mesh_phase(torch, fp, cvt,
+                                                  home_slots, here, card)}
         elif only == "17":
             # fixture (h) gives the kernel's eager time and bound at the
             # spill engine's shapes
@@ -4123,6 +4358,8 @@ def main(argv=None):
     # phase 21: the sharded engine at D = 1, 2, 4 shards on the card and
     # the walker fleet
     t21 = mesh_phase(torch, fp, cvt, home_slots, here, card)
+    # phase 22: the spill-composed mesh, levels through host RAM
+    t22 = spill_mesh_phase(torch, fp, cvt, home_slots, here, card)
     check(not any(m.split(".")[0] in ("jax", "raft_tla_tpu")
                   for m in sys.modules), "JAX or its package was imported")
     log(f"chip_smoke: all phases passed in "
@@ -4131,6 +4368,7 @@ def main(argv=None):
     log(json.dumps({"phase18": t18, "phase19": t19}))
     log(json.dumps({"serve": t20}))
     log(json.dumps({"mesh": t21}))
+    log(json.dumps({"spill_mesh": t22}))
 
     print(json.dumps({"kernels": [{
         "name": "probe_claim_insert", "route": "cuda",
@@ -4139,7 +4377,8 @@ def main(argv=None):
         "launches": c5["launches"],
         "max_abs_err": max(meas["max_abs_err"],
                            t18["kernel"]["max_abs_err"],
-                           t21["kernel"]["max_abs_err"]),
+                           t21["kernel"]["max_abs_err"],
+                           t22["kernel"]["max_abs_err"]),
         "ms": meas["ms"], "plain_ms": meas["plain_ms"],
         "bound_ms": meas["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "rounds": meas["rounds"],
@@ -4224,8 +4463,23 @@ def main(argv=None):
         "mesh_shape_max_abs_err": t21["kernel"]["max_abs_err"],
         "mesh_shape_of": "phase 21c: 4 table shards of 2^22 at config "
                          "#1's last-level load, windows of M 32,768, "
-                         "launched back to back"}],
+                         "launched back to back",
+        "spill_mesh_config1_launches": {
+            k: v["launches"] for k, v in t22["config1"].items()},
+        "spill_mesh_config1_lockstep_steps": {
+            k: v["steps"] for k, v in t22["config1"].items()},
+        "spill_mesh_witness_launches": {
+            str(D): w["launches"] for D, w in t22["witness"].items()},
+        "spill_mesh_shape_ms": t22["kernel"]["ms"],
+        "spill_mesh_shape_ms_per_launch": t22["kernel"]["ms_per_launch"],
+        "spill_mesh_shape_plain_ms": t22["kernel"]["plain_ms"],
+        "spill_mesh_shape_bound_ms": t22["kernel"]["bound_ms"],
+        "spill_mesh_shape_max_abs_err": t22["kernel"]["max_abs_err"],
+        "spill_mesh_shape_of": "phase 22d: 2 table shards of 2^23 at "
+                               "config #1's last-level load, windows of M "
+                               "65,536, launched back to back"}],
         "mesh": t21,
+        "spill_mesh": t22,
         "obs": t16,
         "paxos": t15,
         "spill": {"config2_depth20": t14, "host_table_depth19": t14b},

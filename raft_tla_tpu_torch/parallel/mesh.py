@@ -270,6 +270,22 @@ class _Shard:
         self.ovf, self.fovf, self.sovf, self.hovf, self.hcovf = (
             full((), False, torch.bool) for _ in range(5))
         self.famx = full((len(eng.expander.families),), 0)
+        if eng._step_atomic:
+            # a step-atomic step's insert outcome, held from the insert
+            # to the commit-or-revert (graphs apart across devices)
+            M = eng.D * eng.SC
+            self.s_fresh = full((M,), False, torch.bool)
+            self.s_live = full((M,), False, torch.bool)
+            self.s_pos = full((M,), 0)
+            self.s_n_fresh, self.s_gen = (full((), 0, torch.int64)
+                                         for _ in range(2))
+            self.s_ovf, self.s_hv = (full((), False, torch.bool)
+                                     for _ in range(2))
+
+    def front_bad(self) -> torch.Tensor:
+        """The trips a front half can raise (compaction, families, send
+        window, sort-mode hard lanes)."""
+        return self.fovf | self.sovf | self.hcovf
 
     def set_table(self, flat: torch.Tensor, W: int):
         self.vis_flat = flat
@@ -493,6 +509,17 @@ class ShardedEngine(Engine):
                        None if tables is None else tables[d])
                 for d, dev in enumerate(self.devices)]
 
+    def _flag_buffers(self):
+        """Per device group: the step's [n, 2] flags the host reads and,
+        step-atomic, the shards' trips and every shard's copy of them."""
+        bools = [(dev, len(s)) for dev, s in self._groups]
+        self._flags = [torch.zeros((n, 2), dtype=torch.bool, device=dev)
+                       for dev, n in bools]
+        self._trip_loc = [torch.zeros(n, dtype=torch.bool, device=dev)
+                          for dev, n in bools]
+        self._trip_all = [torch.zeros(self.D, dtype=torch.bool, device=dev)
+                          for dev, _n in bools]
+
     def _fresh_buffers(self):
         """New windows and graph runners for the current capacities (a
         graph holds its buffers' addresses)."""
@@ -537,7 +564,11 @@ class ShardedEngine(Engine):
             nh = torch.maximum(n_hard, nh_par).long()
             sh.hcovf |= nh > self.HCAP
             torch.maximum(sh.hmax, nh, out=sh.hmax)
-        sh.n_gen += n_gen
+        if self._step_atomic:
+            # counted at the commit, and only when the step commits
+            sh.s_gen.copy_(n_gen)
+        else:
+            sh.n_gen += n_gen
         take = lanes.clamp(max=B * A - 1)
         prow = take // A
         pgid = sh.gids.index_select(0, (sh.base + prow).clamp(max=LB - 1))
@@ -572,39 +603,94 @@ class ShardedEngine(Engine):
             out.extend(v.unbind(0))
         return out
 
+    def _window_words(self, rcv, M: int):
+        """A receive window's content and provenance sort words."""
+        W = self.W
+        rrow = {k: rcv["row:" + k] for k in self._fields}
+        return (self._content_words(rrow, M),
+                [_u(rcv["pfp"][w]) for w in range(W)] + [_u(rcv["lane"])])
+
     def _back_half(self, d: int):
         """Shard d's receive window: stage 1 of the canonical survivor,
-        the dedup kernel on the table shard, the append, stage 2."""
+        the dedup kernel on the table shard, the append, stage 2.  A
+        step whose window would overflow the level shard reverts its own
+        inserts (the level replays)."""
+        t = self._back_insert(d)
+        self._back_commit(d, t, t["ovf_now"])
+
+    def _back_insert(self, d: int, pre: Optional[torch.Tensor] = None):
+        """Stage 1 and the dedup launch on shard d's window; ``pre`` (a
+        step-atomic step) is whether any shard's front half tripped,
+        which gates every insert.  Returns the outcome: fresh, pos,
+        live_rep, hv, n_fresh, ovf_now and the window's sort words."""
+        sh, rcv = self._shards[d], self._win.recv_of[d]
+        W, D, SC, LB = self.W, self.D, self.SC, sh.lb
+        M = D * SC
+        self._bind(sh.device)
+        rk = rcv["key"]                                      # [W, M]
+        recv_live = (rk != EMPTY).any(0)
+        # a step that overflowed its compaction or send window replays:
+        # nothing of it is inserted
+        gate = ~(sh.ovf | sh.fovf | sh.sovf | sh.hovf | sh.hcovf)
+        if pre is not None:
+            gate = gate & ~pre
+        cwords, pwords = self._window_words(rcv, M)
+        kwords = [_u(rk[w]) for w in range(W)]
+        rep = canonical_reps(rk, kwords + cwords + pwords)
+        live_rep = recv_live & rep & gate
+        fresh, pos, hv = probe_claim_insert(sh.vis, rk, live_rep)
+        n_fresh = fresh.sum()
+        return dict(fresh=fresh, pos=pos, live_rep=live_rep, hv=hv,
+                    n_fresh=n_fresh, ovf_now=sh.n_lvl + n_fresh > LB - M,
+                    cwords=cwords, pwords=pwords)
+
+    def _back_insert_atomic(self, d: int, pre: torch.Tensor):
+        """A step-atomic step's insert: its outcome is kept on the shard
+        until every shard's trip is known."""
+        sh = self._shards[d]
+        t = self._back_insert(d, pre)
+        for k in ("fresh", "pos", "hv", "n_fresh"):
+            getattr(sh, "s_" + k).copy_(t[k])
+        sh.s_live.copy_(t["live_rep"])
+        sh.s_ovf.copy_(t["ovf_now"])
+
+    def _back_commit_atomic(self, d: int, bad: torch.Tensor):
+        """Commit shard d's kept insert, or revert it when any shard
+        tripped (``bad``)."""
+        sh = self._shards[d]
+        cwords, pwords = self._window_words(self._win.recv_of[d],
+                                            self.D * self.SC)
+        self._back_commit(d, dict(
+            fresh=sh.s_fresh, pos=sh.s_pos, live_rep=sh.s_live, hv=sh.s_hv,
+            n_fresh=sh.s_n_fresh, ovf_now=sh.s_ovf, cwords=cwords,
+            pwords=pwords), bad)
+
+    def _back_commit(self, d: int, t: Dict, bad: torch.Tensor):
+        """Revert the insert where ``bad`` (the shard's own level-shard
+        overflow; in step-atomic mode, a trip on any shard), else append
+        the fresh rows and run stage 2.  A step-atomic step records its
+        cursor in ``trip_base`` when it trips and counts its generated
+        states only when it commits."""
         sh, rcv = self._shards[d], self._win.recv_of[d]
         W, D, SC, LB, VB = self.W, self.D, self.SC, sh.lb, sh.vb
         M = D * SC
         self._bind(sh.device)
         dev = sh.device
-        rk = rcv["key"]                                      # [W, M]
         rrow = {k: rcv["row:" + k] for k in self._fields}
         rpgid, rlane, rpfp = rcv["pgid"], rcv["lane"], rcv["pfp"]
-        recv_live = (rk != EMPTY).any(0)
-        # a step that overflowed its compaction or send window replays:
-        # nothing of it is inserted
-        gate = ~(sh.ovf | sh.fovf | sh.sovf | sh.hovf | sh.hcovf)
-        cwords = self._content_words(rrow, M)
-        pwords = [_u(rpfp[w]) for w in range(W)] + [_u(rlane)]
-        kwords = [_u(rk[w]) for w in range(W)]
-        rep = canonical_reps(rk, kwords + cwords + pwords)
-        live_rep = recv_live & rep & gate
-        fresh, pos, hv = probe_claim_insert(sh.vis, rk, live_rep)
-        sh.hovf |= hv
-        n_fresh = fresh.sum()
-        # the level shard would overflow: revert this step's inserts and
-        # skip the append (the level replays)
-        ovf_now = sh.n_lvl + n_fresh > LB - M
+        fresh, pos, live_rep = t["fresh"], t["pos"], t["live_rep"]
+        cwords, pwords = t["cwords"], t["pwords"]
+        sh.hovf |= t["hv"]
         words = torch.arange(W, device=dev)[:, None] * VB
-        idx = torch.where((fresh & ovf_now)[None], pos.long()[None] + words,
+        idx = torch.where((fresh & bad)[None], pos.long()[None] + words,
                           W * VB)
         sh.vis_flat.index_fill_(0, idx.reshape(-1), EMPTY)
-        fresh = fresh & ~ovf_now
-        n_fresh = torch.where(ovf_now, 0, n_fresh)
-        sh.ovf |= ovf_now
+        fresh = fresh & ~bad
+        n_fresh = torch.where(bad, 0, t["n_fresh"])
+        sh.ovf |= t["ovf_now"]
+        if self._step_atomic:
+            sh.trip_base.copy_(torch.where(bad, sh.base, sh.trip_base))
+            sh.n_gen += torch.where(bad, 0, sh.s_gen)
         cum = torch.cumsum(fresh, 0)
         lpos = torch.where(fresh, cum - 1, M)
         lidx = torch.zeros(M + 1, dtype=torch.int64, device=dev).scatter_(
@@ -628,7 +714,7 @@ class ShardedEngine(Engine):
         sh.lrow.index_copy_(0, torch.where(fresh, pos.long(), VB),
                             (start + lpos).to(torch.int32))
         tgt = sh.lrow.index_select(0, pos.long().clamp(0, VB - 1))
-        dup = live_rep & ~fresh & ~ovf_now & (tgt >= 0)
+        dup = live_rep & ~fresh & ~bad & (tgt >= 0)
         tgt_c = tgt.long().clamp(0, LB - 1)
         swords = self._content_words(
             {k: v.index_select(-1, tgt_c) for k, v in sh.lvl.items()}, M) + \
@@ -659,9 +745,45 @@ class ShardedEngine(Engine):
                 tuple(self.FAM_CAPS), self.HCAP, self.fpr.sym_canon,
                 bool(self.act_names))
 
+    def _write_trips(self, g: int, post: bool):
+        """The group's [n] step-atomic trips: the front halves' (before
+        the inserts), then with each shard's level-shard overflow and
+        probe budget (after them)."""
+        for i, d in enumerate(self._groups[g][1]):
+            sh = self._shards[d]
+            bad = sh.front_bad()
+            self._trip_loc[g][i] = (bad | sh.s_ovf | sh.s_hv) if post else bad
+
+    def _share_trips(self):
+        """Every group's trips to every device: the one copy between
+        devices in the middle of a step-atomic step (written for several
+        cards, run only on one here)."""
+        off = 0
+        for h in range(len(self._groups)):
+            n = self._trip_loc[h].shape[0]
+            for g in range(len(self._groups)):
+                self._trip_all[g][off:off + n].copy_(self._trip_loc[h])
+            off += n
+
+    def _atomic_backs(self, shards: List[int], pre: torch.Tensor):
+        """A step-atomic step's back halves on one device holding every
+        shard: the inserts, the device-side decision whether any shard
+        tripped, then every commit or revert."""
+        for d in shards:
+            self._back_insert_atomic(d, pre)
+        bad = pre | torch.stack([self._shards[d].s_ovf | self._shards[d].s_hv
+                                 for d in shards]).any()
+        for d in shards:
+            self._back_commit_atomic(d, bad)
+
     def _lockstep(self) -> List[List[bool]]:
         """One lock-step step of every shard; returns the [D, 2] flags
-        (the step's one host read)."""
+        (the step's one host read).  In step-atomic mode a trip on any
+        shard reverts the step on every shard: with one device the
+        decision is a reduction inside the step's graph; across devices
+        the back halves split into an insert graph and a commit graph,
+        with the shards' trips copied between devices before each."""
+        atomic = self._step_atomic
         if len(self._groups) == 1:
             dev, shards = self._groups[0]
 
@@ -669,10 +791,36 @@ class ShardedEngine(Engine):
                 for d in shards:
                     self._front_half(d)
                 self._win.exchange(self.D)
-                for d in shards:
-                    self._back_half(d)
+                if atomic:
+                    self._atomic_backs(shards, torch.stack(
+                        [self._shards[d].front_bad() for d in shards]).any())
+                else:
+                    for d in shards:
+                        self._back_half(d)
                 self._write_flags(0)
             self._runners[dev].run(self._step_key("step"), whole)
+        elif atomic:
+            for g, (dev, shards) in enumerate(self._groups):
+                self._runners[dev].run(
+                    self._step_key("front"),
+                    lambda g=g, s=shards: (
+                        [self._front_half(d) for d in s],
+                        self._write_trips(g, False)))
+            self._win.exchange(self.D)
+            self._share_trips()
+            for g, (dev, shards) in enumerate(self._groups):
+                self._runners[dev].run(
+                    self._step_key("insert"),
+                    lambda g=g, s=shards: (
+                        [self._back_insert_atomic(d, self._trip_all[g].any())
+                         for d in s], self._write_trips(g, True)))
+            self._share_trips()
+            for g, (dev, shards) in enumerate(self._groups):
+                self._runners[dev].run(
+                    self._step_key("commit"),
+                    lambda g=g, s=shards: (
+                        [self._back_commit_atomic(d, self._trip_all[g].any())
+                         for d in s], self._write_flags(g)))
         else:
             for g, (dev, shards) in enumerate(self._groups):
                 self._runners[dev].run(
@@ -744,12 +892,28 @@ class ShardedEngine(Engine):
                 # postdates every surviving key)
                 sh.vis[:, sh.jslot[:n].long()] = EMPTY
             else:
-                valid = torch.arange(sh.lb, device=sh.device) < n
-                sh.fmask.copy_(sh.lcon[:sh.lb] & valid)
-                sh.gids.copy_((sh.g_off + int(prefix[d]) + torch.arange(
-                    sh.lb, device=sh.device)).to(torch.int32))
-                for k, v in sh.front.items():
-                    v[..., :n] = sh.lvl[k][..., :n]
+                ar = torch.arange(sh.lb, device=sh.device)
+                keep = sh.lcon[:sh.lb] & (ar < n)
+                gids = (sh.g_off + int(prefix[d]) + ar).to(torch.int32)
+                if self._burst_compact_frontier:
+                    # the spill-composed mesh: the pruned rows leave the
+                    # next frontier here, as its host path drops them, so
+                    # the windows pack (and the gids fall) as there
+                    n = scal[d][7]
+                    kpos = torch.where(keep, torch.cumsum(keep, 0) - 1,
+                                       sh.lb)
+                    kidx = torch.zeros(sh.lb + 1, dtype=torch.int64,
+                                       device=sh.device).scatter_(
+                        0, kpos, ar)[:n]
+                    sh.fmask.copy_(ar < n)
+                    sh.gids[:n] = gids.index_select(0, kidx)
+                    for k, v in sh.front.items():
+                        v[..., :n] = sh.lvl[k].index_select(-1, kidx)
+                else:
+                    sh.fmask.copy_(keep)
+                    sh.gids.copy_(gids)
+                    for k, v in sh.front.items():
+                        v[..., :n] = sh.lvl[k][..., :n]
                 sh.n_front.fill_(n)
                 sh.g_off += total
                 scal[d][3] = n
@@ -766,11 +930,12 @@ class ShardedEngine(Engine):
         return out
 
     def _host_rows(self, d: int, n: int):
-        """Shard d's first n frontier rows (the committed level), its
-        parents and lanes, on the host."""
+        """Shard d's committed level: its first n level rows, parents
+        and lanes, on the host (read before the next level's first
+        step)."""
         sh = self._shards[d]
         return (storage_rows_to_numpy({k: v[..., :n]
-                                       for k, v in sh.front.items()},
+                                       for k, v in sh.lvl.items()},
                                       self.ir.u32_keys),
                 sh.lpar[:n].cpu().numpy().copy(),
                 sh.llane[:n].cpu().numpy().copy())
@@ -828,7 +993,7 @@ class ShardedEngine(Engine):
             stats.append((sum(nl), n_viol, sum(r[2] for r in scal),
                           sum(r[7] for r in scal), sum(r[6] for r in scal)))
             arch.append((nl, self._level_archive(nl, n_viol > 0)))
-            n_front = nl
+            n_front = [r[3] for r in scal]
             li += 1
             viol = n_viol > 0
             done += sum(nl)
@@ -967,8 +1132,7 @@ class ShardedEngine(Engine):
             depth = 0
             resumed = False
         self._stamp_mode(res)
-        self._flags = [torch.zeros((len(s), 2), dtype=torch.bool,
-                                   device=dev) for dev, s in self._groups]
+        self._flag_buffers()
         self._fresh_buffers()
 
         def grow_table_if_needed(min_add=0):

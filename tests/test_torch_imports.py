@@ -368,3 +368,42 @@ def test_mesh_modules_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0, out.stderr
+
+
+def test_spill_mesh_module_imports_without_jax():
+    """The spill-composed mesh and the module its slice changed import
+    with JAX and the JAX package blocked, the package walk reaches it,
+    and it refuses to start without CUDA unless given CPU devices."""
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["raft_tla_tpu"] = None
+        import raft_tla_tpu_torch
+        names = {m.name for m in pkgutil.walk_packages(
+            raft_tla_tpu_torch.__path__, "raft_tla_tpu_torch.")}
+        new = ["raft_tla_tpu_torch.parallel.spill_mesh"]
+        changed = ["raft_tla_tpu_torch.parallel",
+                   "raft_tla_tpu_torch.parallel.mesh"]
+        assert set(new) <= names, sorted(set(new) - names)
+        for n in new + changed:
+            __import__(n)
+        from raft_tla_tpu_torch.config import Bounds, ModelConfig
+        from raft_tla_tpu_torch.parallel import SpilledShardedEngine
+        cfg = ModelConfig(n_servers=2, init_servers=(0, 1), values=(1,),
+                          bounds=Bounds.make(max_log_length=1))
+        for devices in (None, ["cuda:0"] * 2):
+            try:
+                SpilledShardedEngine(cfg, devices=devices)
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e)
+            else:
+                raise AssertionError("the spill mesh started without CUDA")
+        assert SpilledShardedEngine(cfg, devices=["cpu"] * 2).D == 2
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "raft_tla_tpu") and sys.modules[m]]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr
