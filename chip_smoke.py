@@ -246,7 +246,15 @@ Phases (any failure exits non-zero before the final line):
      the kernel at 22b's 2-shard shapes (2^23 slots, windows of 65,536
      keys) == the twin, timed beside its bound.  Each run prints its
      wall, lock-step steps, trips, mid-level spills, spill events and
-     host bytes each way.
+     host bytes each way; (e) 22b's D = 2 run checkpointed at every
+     level to depth 12: the file's frontier, keys and capacities are
+     the reference's file's; resumed on the card to the budget, 22b's
+     answer; resumed on the CPU to depth 14, the card's; its portable
+     image to depth 16 on 4 mesh shards and on the spill engine, the
+     reference's engines' answers from its own file, and the classic
+     engine's refusal; a supervised run with a dispatch fault, two
+     attempts and 22b's answer.  It prints the file's bytes and write
+     seconds and each resume's seconds.
 
 Each log line starts with the seconds since the script began.
 ``python3 chip_smoke.py --phase 15`` (or 16, ..., 22) runs phases 1, 2
@@ -3623,6 +3631,33 @@ SM_MICRO_TRACE = ["Init", "Timeout(1)", "RequestVote(1,0)",
 # 22d: the kernel at 22b's D = 2 table shards (VB 2^23) and windows (M =
 # D x SC = 65,536); D = 4's (2^22, 32,768) are 21c's
 SM_FIXTURE = dict(shards=2, log2_vb=23, M=2 * 32768)
+# 22e: 22b's D = 2 run checkpointed at every level to depth 12 (the burst
+# fuses levels 1-12, so one file, after the burst).  The reference's file
+# from a JAX CPU run of its engine at the same settings,
+#   SpilledShardedEngine(build_cfg(1), devices=jax.devices()[:2],
+#       chunk=2048, lcap=1 << 17, vcap=1 << 24, store_states=False
+#   ).check(max_depth=12, checkpoint_path=F, checkpoint_every=1)
+# holds 397 frontier rows and 2,377 keys; the sha256 of its frontier arrays
+# ("carry|pf|..." by name, then bytes) and of its keys in ascending order
+# (its CPU dedup is the lax form, whose slots may differ from the kernel's).
+# Its portable image to depth 16: the reference's ShardedEngine on 4
+# devices (MESH_ENGINE) lands on CONFIG1_DEPTH16_COUNTS and the mesh's
+# levels, its SpillEngine (SM_IMAGE_SPILL) on MESH_IMAGE_CLASSIC, and its
+# classic Engine refuses the image: the rows pruned at level 12 left gaps in
+# the frontier's ids.
+SM_CKPT_DEPTH, SM_CKPT_CPU_DEPTH, SM_IMAGE_DEPTH = 12, 14, 16
+SM_CKPT_FILE = dict(
+    n_front=397, n_keys=2377, n_vis=[1198, 1179],
+    caps=(131_072, 1 << 23, 16_384, 32_768),
+    fam_caps=[2048, 1024, 2048, 2048, 2048, 2048, 1024, 4096, 3072, 3072],
+    pf_sha256="374f800238b2cae6c71a11567b3f6730e897b28c638306b43e5396923bf07043",
+    keys_sha256="2e7e5a6741c7aee460a0747226b339f6053c052e65e10112519b353256c61ec8")
+SM_IMAGE_SPILL = dict(chunk=2048, seg=1 << 17, vcap=1 << 24,
+                      store_states=False)
+SM_IMAGE_REFUSAL = "gids are not contiguous"
+# the 4th level-loop dispatch is level 17's (the burst takes 1-14, bailing
+# at 15): the retry resumes from the depth-16 file
+SM_CHAOS = "dispatch:at=4"
 
 
 def mesh_run(torch, fp, cfg, D, kw, capture=True, **check_kw):
@@ -4121,6 +4156,187 @@ def spill_mesh_witness_phase(torch, fp, card):
     return out
 
 
+def _sm_file(path):
+    """A spill-mesh checkpoint's pinned features (SM_CKPT_FILE's keys)."""
+    import numpy as np
+    z = np.load(path)
+    meta = json.loads(str(z["meta"]))
+    h = hashlib.sha256()
+    for k in sorted(z.files):
+        if k.startswith("carry|pf"):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(z[k]).tobytes())
+    keys = z["carry|keys"]
+    keys = keys[np.lexsort(keys.T[::-1])]
+    out = dict(n_front=meta["n_front"], n_keys=int(keys.shape[0]),
+               n_vis=meta["n_vis"],
+               caps=(meta["LB"], meta["VB"], meta["FC"], meta["SC"]),
+               fam_caps=meta["fam_caps"], pf_sha256=h.hexdigest(),
+               keys_sha256=hashlib.sha256(
+                   np.ascontiguousarray(keys).tobytes()).hexdigest())
+    z.close()
+    return out
+
+
+def _counts(res):
+    return (res.distinct_states, res.generated_states, res.depth,
+            list(res.level_sizes))
+
+
+def spill_mesh_ckpt_phase(torch, fp, cfg1, card):
+    """22e: 22b's D = 2 run with a checkpoint at every level to depth 12;
+    the file against the reference's; its resumes on the card, on the
+    CPU and, as a portable image, on 4 mesh shards, the spill engine and
+    the classic engine; a supervised run with a dispatch fault."""
+    from raft_tla_tpu_torch.engine.bfs import Engine
+    from raft_tla_tpu_torch.engine.ckpt import CheckpointError
+    from raft_tla_tpu_torch.engine.spill import SpillEngine
+    from raft_tla_tpu_torch.parallel.spill_mesh import SpilledShardedEngine
+    from raft_tla_tpu_torch.resil import chaos
+    from raft_tla_tpu_torch.resil.portable import load_portable_image
+    from raft_tla_tpu_torch.resil.supervisor import supervised_check
+    kw = dict(SM_ENGINE, lcap=SM_SQUEEZED_LCAP)
+    pin = SM_PINS[2]
+    want = (pin["distinct"], pin["generated"], CONFIG1_DEPTH,
+            CONFIG1_MESH_LEVEL_SIZES[:-2] + pin["tail"])
+    saves = []
+    save = SpilledShardedEngine._save_spill_mesh_checkpoint
+
+    def timed_save(self, path, *rest):
+        t = time.perf_counter()
+        save(self, path, *rest)
+        saves.append((rest[2], time.perf_counter() - t,
+                      os.path.getsize(path)))
+    SpilledShardedEngine._save_spill_mesh_checkpoint = timed_save
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_smckpt_")
+    try:
+        path = os.path.join(tmp, "sm2.ckpt")
+        w = spill_mesh_run(torch, fp, cfg1, 2, kw, max_depth=SM_CKPT_DEPTH,
+                           checkpoint_path=path, checkpoint_every=1)
+        check(w["res"].depth == SM_CKPT_DEPTH and
+              [d for d, _s, _b in saves] == [SM_CKPT_DEPTH],
+              f"22e: saves at depths {[d for d, _s, _b in saves]}")
+        got = _sm_file(path)
+        check(got == SM_CKPT_FILE,
+              f"22e: the file {got} is not the reference's "
+              f"{SM_CKPT_FILE}")
+        write = saves[-1]
+        # (i) on the card to the budget
+        r = spill_mesh_run(torch, fp, cfg1, 2, kw, resume_from=path,
+                           max_states=CONFIG1_MAX_STATES)
+        check(_counts(r["res"]) == want and r["mid"] == pin["mid"] and
+              r["caps"] == pin["caps"],
+              f"22e: the card's resume {_counts(r['res'])[:3]}, mid-level "
+              f"spills {r['mid']}, caps {r['caps']}")
+        # (ii) on the CPU to depth 14, against the card's
+        card14 = spill_mesh_run(torch, fp, cfg1, 2, kw, resume_from=path,
+                                max_depth=SM_CKPT_CPU_DEPTH)
+        t1 = time.perf_counter()
+        cpu = SpilledShardedEngine(cfg1, devices=["cpu"] * 2, **kw).check(
+            resume_from=path, max_depth=SM_CKPT_CPU_DEPTH)
+        t_cpu = time.perf_counter() - t1
+        check(_counts(cpu) == _counts(card14["res"]) and
+              cpu.level_sizes == want[3][:SM_CKPT_CPU_DEPTH],
+              f"22e: the CPU's resume {_counts(cpu)[:3]} != the card's "
+              f"{_counts(card14['res'])[:3]}")
+        # (iii) the portable image
+        img = load_portable_image(path)
+        r4 = mesh_run(torch, fp, cfg1, 4, dict(MESH_ENGINE,
+                                                store_states=False),
+                      resume_image=img, max_depth=SM_IMAGE_DEPTH)
+        ctr = fp.PROBE_CLAIM_LAUNCHES
+        ctr.reset()
+        t1 = time.perf_counter()
+        sp = SpillEngine(cfg1, device="cuda", **SM_IMAGE_SPILL).check(
+            resume_image=img, max_depth=SM_IMAGE_DEPTH)
+        t_spill = time.perf_counter() - t1
+        spill_launches = ctr.count
+        ctr.reset()
+        mesh16 = CONFIG1_DEPTH16_COUNTS + (
+            SM_IMAGE_DEPTH, CONFIG1_MESH_LEVEL_SIZES[:SM_IMAGE_DEPTH])
+        for nm, res, pinned in (("4 mesh shards", r4["res"], mesh16),
+                                ("the spill engine", sp,
+                                 MESH_IMAGE_CLASSIC)):
+            check(tuple(_counts(res)) == tuple(pinned),
+                  f"22e: the image on {nm}: {_counts(res)[:3]}")
+        check(spill_launches > 0, "22e: the spill engine never launched "
+                                  "the kernel")
+        refused = ""
+        try:
+            Engine(cfg1, device="cuda", store_states=False,
+                   **CONFIG1_ENGINE).check(resume_image=img,
+                                           max_depth=SM_IMAGE_DEPTH)
+        except CheckpointError as e:
+            refused = str(e)
+        check(SM_IMAGE_REFUSAL in refused,
+              f"22e: the classic engine took the image ({refused!r})")
+        # (iv) supervised, a fault at a level's dispatch, from the chain
+        eng = SpilledShardedEngine(cfg1, devices=["cuda:0"] * 2, **kw)
+        before = []
+
+        def make_engine():
+            # the failed attempt's steps, before check() resets them
+            before.append((eng.lockstep_steps, eng.rehash_launches))
+            return eng
+        torch.cuda.synchronize()
+        ctr.reset()
+        chaos.install(SM_CHAOS)
+        t1 = time.perf_counter()
+        try:
+            sres, _e, attempts = supervised_check(
+                make_engine, retries=1, backoff=0.01,
+                checkpoint_path=os.path.join(tmp, "chaos.ckpt"),
+                checkpoint_every=1, max_states=CONFIG1_MAX_STATES,
+                sleep=lambda s: None, reinit=False)
+        finally:
+            chaos.uninstall()
+        t_sup = time.perf_counter() - t1
+        sup_launches = ctr.count
+        ctr.reset()
+        steps = sum(b[0] for b in before) + eng.lockstep_steps
+        rehash = sum(b[1] for b in before) + eng.rehash_launches
+        check(attempts == 2 and _counts(sres) == want,
+              f"22e: supervised {attempts} attempts, {_counts(sres)[:3]}")
+        check(sup_launches == 2 * steps + rehash,
+              f"22e: supervised launches {sup_launches} != 2 x {steps} "
+              f"steps + {rehash}")
+    finally:
+        SpilledShardedEngine._save_spill_mesh_checkpoint = save
+        shutil.rmtree(tmp, ignore_errors=True)
+    sup_saves = saves[1:]
+    log(f"phase 22e spill-mesh checkpoint [{card}]: config #1 at D=2, lcap "
+        f"2^17, written at depth {SM_CKPT_DEPTH} after the burst: "
+        f"{write[2]} bytes in {write[1]:.3f} s (run + write "
+        f"{w['wall']:.2f} s); frontier, keys and capacities == the "
+        f"reference's file")
+    log(f"phase 22e resumes [{card}]: on the card to depth "
+        f"{r['res'].depth} in {r['wall']:.2f} s == 22b "
+        f"({r['res'].distinct_states} states, {r['mid']} mid-level spills, "
+        f"{r['launches']} launches = 2 x {r['steps']} steps + "
+        f"{r['rehash_launches']}); on the card to depth "
+        f"{SM_CKPT_CPU_DEPTH} in {card14['wall']:.2f} s, on the CPU in "
+        f"{t_cpu:.2f} s, equal ({cpu.distinct_states} states); the image "
+        f"to depth {SM_IMAGE_DEPTH} on 4 mesh shards in {r4['wall']:.2f} s "
+        f"({r4['launches']} launches) and on the spill engine in "
+        f"{t_spill:.2f} s ({spill_launches} launches) == the reference's "
+        f"engines'; the classic engine refuses it")
+    log(f"phase 22e supervised [{card}]: {SM_CHAOS}, {attempts} attempts in "
+        f"{t_sup:.2f} s == 22b; {len(sup_saves)} saves, the largest "
+        f"{max(b for _d, _s, b in sup_saves)} bytes in "
+        f"{max(s for _d, s, _b in sup_saves):.3f} s, "
+        f"{sum(s for _d, s, _b in sup_saves):.2f} s in all; launches "
+        f"{sup_launches} = 2 x {steps} steps + {rehash}")
+    return dict(file_bytes=write[2], write_s=write[1], run_write_s=w["wall"],
+                write_launches=w["launches"],
+                resume=_sm_row(r), resume14_s=card14["wall"],
+                resume14_launches=card14["launches"], cpu_resume14_s=t_cpu,
+                image_mesh4_s=r4["wall"], image_mesh4_launches=r4["launches"],
+                image_spill_s=t_spill, image_spill_launches=spill_launches,
+                supervised_s=t_sup, supervised_launches=sup_launches,
+                supervised_steps=steps, supervised_attempts=attempts,
+                supervised_saves=[[d, s, b] for d, s, b in sup_saves])
+
+
 def spill_mesh_phase(torch, fp, cvt, home_slots, here, card):
     """Phase 22: the spill-composed mesh on the card."""
     from raft_tla_tpu_torch.cfg.parser import load_model
@@ -4134,9 +4350,10 @@ def spill_mesh_phase(torch, fp, cvt, home_slots, here, card):
     # 2-shard table shards' shapes (21c holds the 4-shard ones)
     d = mesh_kernel_phase(torch, fp, cvt, home_slots, card,
                           fixture=SM_FIXTURE, tag="22d")
+    e = spill_mesh_ckpt_phase(torch, fp, cfg1, card)
     wall = time.perf_counter() - t0
     log(f"phase 22 [{card}]: {wall:.1f} s")
-    return dict(config1=a, witness=c, kernel=d, wall=wall)
+    return dict(config1=a, witness=c, kernel=d, ckpt=e, wall=wall)
 
 
 def main(argv=None):
@@ -4470,6 +4687,13 @@ def main(argv=None):
             k: v["steps"] for k, v in t22["config1"].items()},
         "spill_mesh_witness_launches": {
             str(D): w["launches"] for D, w in t22["witness"].items()},
+        "spill_mesh_ckpt_launches": {
+            k: t22["ckpt"][k] for k in (
+                "write_launches", "resume14_launches",
+                "image_mesh4_launches", "image_spill_launches",
+                "supervised_launches")},
+        "spill_mesh_ckpt_resume_launches": t22["ckpt"]["resume"][
+            "launches"],
         "spill_mesh_shape_ms": t22["kernel"]["ms"],
         "spill_mesh_shape_ms_per_launch": t22["kernel"]["ms_per_launch"],
         "spill_mesh_shape_plain_ms": t22["kernel"]["plain_ms"],

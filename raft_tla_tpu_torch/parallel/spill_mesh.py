@@ -34,26 +34,39 @@ the canonical minimum is per spill epoch.  With no mid-level spill the
 engine equals ``ShardedEngine``; with them it is deterministic for a
 fixed (D, chunk, caps) and equals the reference's engine bit for bit.
 
-The host-partitioned table (``host_table``) and the checkpoints are
-ROADMAP item 9b-ii: both raise ``NotImplementedError`` here.
+Checkpoints: at a level's end the whole wavefront is on the host (the
+frontier blocks) or one read away (the table shards).  The file holds
+it pooled in global-id order, the portable form, with the shards' keys
+in (shard, slot) order: the reference's file, written and read by
+either package.  Ownership is a function of a key's content, so a
+resume routes rows and keys back to their owners and rebuilds each
+shard's table with the host claim-insert (``insert_np``); a
+``resume_image`` of any engine family takes the same path.
+
+The host-partitioned table (``host_table``) is ROADMAP item 9b-iii: it
+raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..convert import rows_to_torch, storage_to_numpy
+from ..convert import (rows_to_torch, storage_to_numpy, words_to_numpy,
+                       words_to_torch)
 from ..engine import driver
 from ..engine.bfs import CheckResult, Violation
+from ..engine.ckpt import CheckpointError, ckpt_read, ckpt_result, ckpt_write
+from ..engine.host_table import insert_np
 from ..engine.spill import SpillEngine, _np_to_t, _t_to_np
 from ..obs import NULL_OBS
 from ..ops.codec import C_OVERFLOW
 from ..resil.chaos import chaos_point
+from ..resil.portable import dense_table_keys, validate_image
 from ..utils import take_arrays
 from .mesh import ShardedEngine
 
@@ -62,7 +75,7 @@ from .mesh import ShardedEngine
 (Z_NLVL, Z_NGEN, Z_OVF, Z_FOVF, Z_SOVF, Z_HOVF, Z_TRIP,
  Z_LEN) = range(8)
 
-_LATER = ("is ROADMAP item 9b-ii: not ported yet (the reference's "
+_LATER = ("is ROADMAP item 9b-iii: not ported yet (the reference's "
           "SpilledShardedEngine has it)")
 
 
@@ -73,10 +86,15 @@ class SpilledShardedEngine(ShardedEngine):
     (2·D·SC): the classic engine's 4·FCAP floor guards whole-level
     replays, and this engine replays single steps.  The rest as
     ``ShardedEngine``; ``store_states`` composes the trace archive from
-    the spilled blocks (``archive_dir``: on disk)."""
+    the spilled blocks (``archive_dir``: on disk).  ``partitions``,
+    ``part_cap`` and ``dev_keys`` belong to the host table: they are
+    kept, and ``partitions`` goes into every checkpoint, as the
+    reference keeps them."""
 
     def __init__(self, cfg: ModelConfig, devices=None, chunk: int = 512,
                  store_states: bool = False, host_table: bool = False,
+                 partitions: int = 4, part_cap: int = 1 << 12,
+                 dev_keys: Optional[int] = None,
                  archive_dir: Optional[str] = None, **kw):
         if host_table:
             raise NotImplementedError(f"the spill mesh's host table {_LATER}")
@@ -87,6 +105,12 @@ class SpilledShardedEngine(ShardedEngine):
         self.store_states = bool(store_states)
         self.archive_dir = archive_dir
         self._cur_parts: List[dict] = []
+        self.host_table = False
+        self.partitions = int(partitions)
+        self.part_cap = int(part_cap)
+        self.VB0 = self.VB
+        self.dev_keys = (int(dev_keys) if dev_keys
+                         else int(self._LOAD_MAX * self.VB))
         self.LB = self._round_lb(max(kw.get("lcap", 1 << 14) // self.D,
                                      2 * self.D * self.SC))
         self._step_atomic = True
@@ -330,18 +354,18 @@ class SpilledShardedEngine(ShardedEngine):
               resume_from: Optional[str] = None,
               resume_image=None,
               verbose: bool = False, obs=None) -> CheckResult:
-        """As ``ShardedEngine.check``, without checkpoints and resumes
-        (ROADMAP item 9b-ii: they raise).  obs — the reference's spans:
-        ``level_dispatch``, ``burst_dispatch``, ``harvest`` (one per
-        spill event), ``archive_io``; one ledger row per level and per
+        """As ``ShardedEngine.check``.  ``checkpoint_path`` writes the
+        reference's pooled-wavefront file after a fused burst and at a
+        level's end (every ``checkpoint_every`` levels); ``resume_from``
+        resumes one written on a mesh of the same D, ``resume_image`` a
+        ``resil.portable.PortableImage`` of any engine family (module
+        docstring).  obs — the reference's spans: ``level_dispatch``,
+        ``burst_dispatch``, ``harvest`` (one per spill event),
+        ``archive_io``, ``checkpoint``; one ledger row per level and per
         burst."""
-        for name, v in (("checkpoint_path", checkpoint_path),
-                        ("resume_from", resume_from),
-                        ("resume_image", resume_image)):
-            if v is not None:
-                raise NotImplementedError(
-                    f"the spill mesh's checkpoints and resumes ({name}) "
-                    f"{_LATER}")
+        if resume_from is not None and resume_image is not None:
+            raise ValueError(
+                "resume_from and resume_image are mutually exclusive")
         obs = self._obs = obs if obs is not None else NULL_OBS
         t0 = time.perf_counter()
         D = self.D
@@ -350,13 +374,25 @@ class SpilledShardedEngine(ShardedEngine):
         self.lockstep_steps = self.flag_reads = self.rehash_launches = 0
         self.captures = self.replays = 0
         self._reset_spill_counters()
-        self._init_store()
-        self._cur_parts = []
-        res, root_blks, n_vis = self._root_blocks(seed_states)
+        resumed = resume_from is not None or resume_image is not None
+        if resume_from is not None:
+            (res, frontier, n_states, n_vis,
+             depth) = self._load_spill_mesh_checkpoint(resume_from)
+        elif resume_image is not None:
+            (res, frontier, n_states, n_vis,
+             depth) = self._resume_portable(resume_image)
+        else:
+            self._init_store()
+            self._cur_parts = []
+            res, root_blks, n_vis = self._root_blocks(seed_states)
+            n_states = depth = 0
+        if resumed:
+            self._restore_pin_interiors(res)
         self._stamp_mode(res)
         self._flag_buffers()
+        # windows and graphs for the capacities this run starts from (a
+        # resume restores the file's)
         self._fresh_buffers()
-        n_states = 0
 
         def harvest_blocks(blks):
             """One spill event's blocks, shard-major: counts, violations,
@@ -393,12 +429,12 @@ class SpilledShardedEngine(ShardedEngine):
                                   gids[keep])
             return out
 
-        frontier: List[List] = [[] for _ in range(D)]
-        for d, f in enumerate(harvest_blocks(root_blks)):
-            if f is not None:
-                frontier[d].append(f)
-        self._flush_level_parts()
-        depth = 0
+        if not resumed:
+            frontier = [[] for _ in range(D)]
+            for d, f in enumerate(harvest_blocks(root_blks)):
+                if f is not None:
+                    frontier[d].append(f)
+            self._flush_level_parts()
         if stop_on_violation and res.violations:
             return self._done(res, depth, t0)
 
@@ -414,12 +450,19 @@ class SpilledShardedEngine(ShardedEngine):
             if (self.burst and burst_ok and
                     max(sum(int(g.shape[0]) for _r, g in q)
                         for q in frontier) <= self._mesh_burst_width()):
+                d0 = depth
                 (frontier, depth, n_states, fused,
                  bailed) = self._burst_mesh_levels(
                     frontier, res, depth, n_states, n_vis, max_depth,
                     max_states, verbose)
                 if fused:
                     burst_ok = not bailed
+                    if checkpoint_path is not None and \
+                            driver.ckpt_due_after_burst(
+                                depth, d0, checkpoint_every):
+                        self._save_spill_mesh_checkpoint(
+                            checkpoint_path, res, frontier, depth,
+                            n_states, n_vis)
                     if stop_on_violation and res.violations:
                         break
                     continue
@@ -464,6 +507,12 @@ class SpilledShardedEngine(ShardedEngine):
                 res, depth, level_new, level_gen,
                 sum(int(g.shape[0]) for q in next_frontier for _r, g in q))
             frontier = next_frontier
+            # after the level's harvest and archive flush: the file holds
+            # the post-prune frontier, the exact resume point
+            if checkpoint_path is not None and \
+                    driver.ckpt_due_at_level(depth, checkpoint_every):
+                self._save_spill_mesh_checkpoint(
+                    checkpoint_path, res, frontier, depth, n_states, n_vis)
             obs.dispatch(kind="level", depth=depth,
                          frontier=sum(int(g.shape[0])
                                       for q in frontier for _r, g in q),
@@ -476,6 +525,161 @@ class SpilledShardedEngine(ShardedEngine):
                       f"{sum(int(g.shape[0]) for q in frontier for _r, g in q)}"
                       f", {time.perf_counter() - t1:.2f}s", flush=True)
         return self._done(res, depth, t0)
+
+    # ------------------------------------------------------------------
+    # checkpoints and resumes (the reference's pooled-wavefront file).
+    # The slot layout is not in the file: membership is a set property,
+    # and a resume rebuilds each shard's table with insert_np over the
+    # file's keys in (shard, slot) order, the reference's images slot for
+    # slot.  A file is written only at a level's end, where the stage-2
+    # epoch has closed, so mid-level spills before or after it change
+    # nothing.
+    # ------------------------------------------------------------------
+
+    _SM_EXTRA_KEYS = ("D", "LB", "VB", "FC", "SC", "fam_caps",
+                      "host_table", "partitions")
+    _SM_FMT = ("sm_format", 1, "the spill-mesh pooled-wavefront layout")
+
+    def _empty_rows(self) -> Dict[str, np.ndarray]:
+        """Zero batch-major rows in the storage dtypes."""
+        return storage_to_numpy(
+            {k: torch.zeros((0,) + s, dtype=dt)
+             for k, (s, dt) in self._fields.items()}, self.ir.u32_keys)
+
+    def _pool_frontier(self, frontier):
+        """Every shard's frontier blocks (batch-last) -> (rows
+        batch-major, gids) pooled in global-id order."""
+        rows_l, gids_l = [], []
+        for q in frontier:
+            for rows, gids in q:
+                rows_l.append(rows)
+                gids_l.append(gids)
+        if not gids_l:
+            return self._empty_rows(), np.zeros((0,), np.int32)
+        g = np.concatenate(gids_l)
+        order = np.argsort(g, kind="stable")
+        pf_rows = {k: np.ascontiguousarray(np.concatenate(
+            [np.moveaxis(r[k], -1, 0) for r in rows_l])[order])
+            for k in rows_l[0]}
+        return pf_rows, g[order].astype(np.int32)
+
+    def _save_spill_mesh_checkpoint(self, path, res, frontier, depth,
+                                    n_states, n_vis):
+        with self._obs.span("checkpoint"):
+            pf_rows, pf_g = self._pool_frontier(frontier)
+            # the shards as the reference's carry, W words of [D, VB]:
+            # the keys come out in (shard, slot) order
+            tabs = np.stack([words_to_numpy(sh.vis) for sh in self._shards])
+            ckpt = {"pf|g": pf_g, "keys": dense_table_keys(
+                [tabs[:, w] for w in range(self.W)])}
+            for k, v in pf_rows.items():
+                ckpt[f"pf|rows|{k}"] = v
+            parents, lanes, states, arch_meta = self._ckpt_store_args()
+            # the reference's meta, and the port's HCAP (the sort-mode
+            # hard-lane bound: a resumed run trips where the interrupted
+            # one did not without it)
+            ckpt_write(path, ckpt, self.store_states, parents, lanes,
+                       states, res, dict(
+                           spill=True, sharded=True, sm_format=1,
+                           D=self.D, W=self.W, host_table=self.host_table,
+                           partitions=self.partitions,
+                           depth=depth, n_states=n_states,
+                           n_vis=[int(x) for x in n_vis],
+                           n_front=int(pf_g.shape[0]),
+                           LB=self.LB, VB=self.VB, FC=self.FC, SC=self.SC,
+                           fam_caps=list(self.FAM_CAPS), **arch_meta,
+                           layout=2, chunk=self.chunk, spec=self.ir.name,
+                           sym_canon=self.fpr.sym_canon,
+                           ir_fingerprint=self.ir.fingerprint(),
+                           cfg=repr(self.cfg), HCAP=self.HCAP),
+                       keep=self.ckpt_keep)
+
+    def _load_spill_mesh_checkpoint(self, path):
+        z, meta = ckpt_read(path, repr(self.cfg), self.chunk,
+                            self._SM_EXTRA_KEYS, sharded=True, spill=True,
+                            expected_format=self._SM_FMT,
+                            spec_name=self.ir.name,
+                            sym_canon=self.fpr.sym_canon)
+        if meta["D"] != self.D:
+            raise CheckpointError(
+                f"checkpoint was written on a {meta['D']}-device "
+                f"mesh; this engine has {self.D} devices — exact "
+                "resume needs the same mesh, or re-partition with a "
+                "portable resume (resume_image / --resume-portable)")
+        if bool(meta.get("host_table")) != self.host_table:
+            raise CheckpointError(
+                f"{path}: checkpoint was written with host_table="
+                f"{bool(meta.get('host_table'))}; resume with the "
+                "same setting")
+        if self.host_table and meta["partitions"] != self.partitions:
+            raise CheckpointError(
+                f"{path}: checkpoint has {meta['partitions']} "
+                f"host-table partitions; engine has "
+                f"{self.partitions} — resume with the same "
+                "--partitions (counts are P-invariant, but the "
+                "serialized images are not)")
+        # the capacities decide the segments, so the spill events, row
+        # order and global ids: the interrupted run's
+        self.LB, self.VB, self.FC, self.SC = (
+            int(meta["LB"]), int(meta["VB"]), int(meta["FC"]),
+            int(meta["SC"]))
+        self.FAM_CAPS = tuple(int(c) for c in meta["fam_caps"])
+        self.HCAP = int(meta.get("HCAP", self.HCAP))
+        rows = {nm.split("|", 3)[3]: np.asarray(z[nm]) for nm in z.files
+                if nm.startswith("carry|pf|rows|")}
+        gids = np.asarray(z["carry|pf|g"]).astype(np.int32)
+        keys = np.asarray(z["carry|keys"]).astype(np.uint32)
+        self._load_archives(path, z, meta, {"lvl": rows})
+        self._cur_parts = []
+        res = ckpt_result(z, meta)
+        z.close()
+        frontier, n_vis = self._restore_wavefront(keys, rows, gids,
+                                                  exact_vb=True)
+        return res, frontier, meta["n_states"], n_vis, meta["depth"]
+
+    def _resume_portable(self, img):
+        """A PortableImage of any engine family or mesh size onto this
+        mesh: keys and frontier rows go to their owners."""
+        validate_image(img, self.ir.name, repr(self.cfg), self.W)
+        self._restore_portable_archives(img)
+        self._cur_parts = []
+        rows, gids = img.expandable()
+        frontier, n_vis = self._restore_wavefront(
+            img.keys.astype(np.uint32), rows, gids)
+        return img.fresh_result(), frontier, img.n_states, n_vis, img.depth
+
+    def _restore_wavefront(self, keys, rows, gids, exact_vb=False):
+        """The pooled wavefront -> this mesh's shards: frontier rows and
+        visited keys to their owners (``key[W-1] mod D``), each shard's
+        table built on the host with ``insert_np`` and uploaded.  Outside
+        an exact resume the table grows to the load bound first.
+        Returns (frontier blocks per shard, n_vis)."""
+        D, W = self.D, self.W
+        self._bind(self.devices[0])
+        frontier: List[List] = [[] for _ in range(D)]
+        if gids.shape[0]:
+            fkeys = SpillEngine._frontier_keys_of(self, rows)
+            fowner = fkeys[:, W - 1].astype(np.int64) % D
+            for d in range(D):
+                idx = np.nonzero(fowner == d)[0]
+                if len(idx):
+                    frontier[d].append((
+                        {k: np.ascontiguousarray(np.moveaxis(v[idx], 0, -1))
+                         for k, v in rows.items()},
+                        gids[idx].astype(np.int32)))
+        owner = keys[:, W - 1].astype(np.int64) % D
+        key_src = [np.ascontiguousarray(keys[owner == d]) for d in range(D)]
+        n_vis = np.array([k.shape[0] for k in key_src], np.int64)
+        if not exact_vb:
+            while int(n_vis.max(initial=0)) + self.LB > \
+                    self._LOAD_MAX * self.VB:
+                self.VB *= 4
+        self._shards = self._new_shards()
+        for sh, kd in zip(self._shards, key_src):
+            img = np.full((W, self.VB), np.uint32(0xFFFFFFFF), np.uint32)
+            insert_np(img, kd)
+            sh.vis.copy_(words_to_torch(img, sh.device))
+        return frontier, n_vis
 
     # ------------------------------------------------------------------
     # the compacting mesh burst: while every shard's frontier fits the

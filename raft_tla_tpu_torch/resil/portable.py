@@ -3,9 +3,9 @@
 read into one engine-agnostic wavefront.
 
 Every engine family's checkpoint — the classic ``Engine``, the
-``SpillEngine`` and the JAX package's ``ShardedEngine`` and
-``SpilledShardedEngine`` — carries the same logical wavefront under
-different layouts: the visited-fingerprint set, the frontier rows (the
+``SpillEngine``, ``ShardedEngine`` and ``SpilledShardedEngine``, from
+either package — carries the same logical wavefront under different
+layouts: the visited-fingerprint set, the frontier rows (the
 last committed level) in gid order, the run counters and the trace
 archives.  ``load_portable_image`` reads any of those files into one
 ``PortableImage``:
@@ -19,10 +19,10 @@ archives.  ``load_portable_image`` reads any of those files into one
 - the counters (a ``CheckResult``), depth, ``n_states`` and the
   archives.
 
-The sharded readers only parse files: the port reads what the JAX mesh
-engines write without a mesh of its own.  A target engine rebuilds its
-table from the key set and re-homes the frontier rows, so a resumed run
-lands on the counts and level sizes of an uninterrupted one.
+The sharded readers only parse files: a mesh's file reads without a
+mesh.  A target engine rebuilds its table from the key set and re-homes
+the frontier rows, so a resumed run lands on the counts and level sizes
+of an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -306,8 +306,9 @@ def _extract_spill(z, meta) -> PortableImage:
 
 
 def _extract_spill_mesh(z, meta) -> PortableImage:
-    """The JAX ``SpilledShardedEngine`` writes the wavefront pooled and
-    in gid order already: its native form is the portable one."""
+    """Either package's ``SpilledShardedEngine`` writes the wavefront
+    pooled and in gid order already: its native form is the portable
+    one."""
     img = _blank("spill_mesh")
     if meta.get("host_table"):
         D = int(meta["D"])

@@ -4,7 +4,9 @@ step-atomic lock-step step, the eager one and the CPU give the same
 answer (counts, violations, archives, mid-level spills and trips), the
 dedup kernel launched once a shard a lock-step step plus the rehashes,
 and every replay runs under ``set_sync_debug_mode("error")`` (the flag
-and summary reads are outside).  These need an NVIDIA GPU with nvcc
+and summary reads are outside); a checkpoint written on the card, between
+two levels that spill mid-level, resumes on the CPU as on the card.
+These need an NVIDIA GPU with nvcc
 (marker ``cuda``) and skip elsewhere; on the card run
 
     python -m pytest tests/test_torch_spill_mesh_cuda.py -m cuda --noconftest
@@ -83,3 +85,20 @@ def test_the_card_equals_the_cpu_without_a_sync_in_a_replay(cuda,
             assert eng.replays > 0 and eng.captures > 0
     assert out["graph"] == out["eager"] == out["cpu"]
     assert out["cpu"]["spills"][0] >= 3
+
+
+def test_a_file_written_on_the_card_resumes_on_the_cpu(cuda, tmp_path):
+    path = str(tmp_path / "card.ckpt")
+    eng = SpilledShardedEngine(MICRO, devices=["cuda:0"] * 2, **ENGINE)
+    eng.check(max_depth=13, checkpoint_path=path, checkpoint_every=13)
+    assert eng.mid_level_spills > 0
+    out = {}
+    for name, devs in (("card", ["cuda:0"] * 2), ("cpu", ["cpu"] * 2)):
+        eng = SpilledShardedEngine(MICRO, devices=devs, **ENGINE)
+        out[name] = _answer(eng, eng.check(max_depth=14, resume_from=path))
+    assert out["card"] == out["cpu"]
+    assert out["cpu"]["spills"][0] > 0
+    full = SpilledShardedEngine(MICRO, devices=["cpu"] * 2, **ENGINE)
+    want = _answer(full, full.check(max_depth=14))
+    assert {k: v for k, v in out["cpu"].items() if k != "spills"} == \
+        {k: v for k, v in want.items() if k != "spills"}

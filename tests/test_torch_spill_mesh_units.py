@@ -12,11 +12,15 @@ turns on in ``parallel/mesh.py``, on the CPU:
   step-atomic mode forced onto it gives the same answer;
 - with no mid-level spill the spill mesh equals ``ShardedEngine``;
   paxos at D = 2 equals the oracle and the classic engine;
-- the refusals: the host table, checkpoints and resumes (ROADMAP 9b-ii)
-  and ``devices=None`` without CUDA;
+- the refusals: the host table (ROADMAP 9b-iii) and ``devices=None``
+  without CUDA; the checkpoint keywords as the reference's engine takes
+  them (a file written, its errors for a missing file and for an object
+  that is not a portable image);
 - (slow) the reference's engine at D = 4, with mid-level spills: the
   same answer as ``test_torch_spill_mesh.py`` holds at D = 2.
 """
+
+import json
 
 import jax
 import numpy as np
@@ -26,6 +30,7 @@ import torch
 from raft_tla_tpu.parallel.spill_mesh import \
     SpilledShardedEngine as JSpilledShardedEngine
 
+from raft_tla_tpu_torch.engine.ckpt import CheckpointError
 from raft_tla_tpu_torch.parallel.mesh import ShardedEngine
 from raft_tla_tpu_torch.parallel.spill_mesh import (Z_TRIP,
                                                     SpilledShardedEngine)
@@ -166,14 +171,32 @@ def test_paxos_at_two_shards_equals_the_oracle_and_the_engine():
     dict(host_table=True), dict(checkpoint_path="x.ckpt"),
     dict(resume_from="x.ckpt"), dict(resume_image=object())],
     ids=["host_table", "checkpoint_path", "resume_from", "resume_image"])
-def test_the_later_items_refuse(kw):
+def test_the_later_items_refuse(kw, tmp_path):
+    """The host table still refuses (ROADMAP 9b-iii).  The checkpoint
+    keywords do what the reference's engine does on the same call: a
+    file written, and the reference's own error for a missing file and
+    for an object that is not a portable image."""
     if "host_table" in kw:
         with pytest.raises(NotImplementedError, match="9b-ii"):
             SpilledShardedEngine(cfgs()[1], devices=CPU2, **kw)
         return
     eng = SpilledShardedEngine(cfgs()[1], devices=CPU2, chunk=16)
-    with pytest.raises(NotImplementedError, match="9b-ii"):
+    kw = {k: str(tmp_path / v) if isinstance(v, str) else v
+          for k, v in kw.items()}
+    if "checkpoint_path" in kw:
+        res = eng.check(max_depth=2, **kw)
+        meta = json.loads(str(np.load(kw["checkpoint_path"])["meta"]))
+        assert (meta["D"], meta["spill"], meta["sharded"], meta["depth"],
+                meta["distinct"]) == (2, True, True, 2, res.distinct_states)
+        return
+    ref = JSpilledShardedEngine(cfgs()[0], devices=jax.devices()[:2],
+                                chunk=16)
+    with pytest.raises(Exception) as want:
+        ref.check(max_depth=2, **kw)
+    with pytest.raises(CheckpointError) as got:
         eng.check(max_depth=2, **kw)
+    assert type(want.value).__name__ == "CheckpointError"
+    assert str(got.value) == str(want.value)
 
 
 def test_no_devices_without_cuda_raises():
